@@ -1,0 +1,159 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface. At first use each
+``.cu`` file is compiled by its own ``nvcc`` process (all started
+together) for ``sm_90a``, the objects are linked into one shared library
+under ``build/cuda_kernels/`` beside the package (a directory git
+ignores), and the library is loaded with ``ctypes``. The library's name
+carries a hash of the sources and flags, so an edited source never loads
+a stale build. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("layer_stack.cu", "trunk.cu", "epilogue.cu")
+HEADERS = ("pmc_common.cuh",)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name → argument types (every one returns a cudaError_t)
+_SIGNATURES = {
+    "pmc_layer_stack": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "pmc_trunk": [_P, _P, _P, _I, _P, _I, _P, _P, _P,
+                  _P, _P, _P, _P, _P, _P, _P, _P,
+                  _I, _I, _I, _I, _P],
+    "pmc_curl_advect_epilogue": [_P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P,
+                                 _I, _I, _F, _F, _F, _F, _P],
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((Path(home) / "bin" / "nvcc") if home else None,
+                 shutil.which("nvcc"), Path("/usr/local/cuda/bin/nvcc")):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "are built from source at first use")
+
+
+def _source_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the kernels if this source version has no library yet.
+
+    Returns (library path, seconds spent building — 0 when it existed,
+    the compilers' ``-Xptxas -v`` report).
+    """
+    so = BUILD_DIR / f"libpmc_kernels_{_source_key()}.so"
+    log = so.with_suffix(".log")
+    if so.exists():
+        return so, 0.0, log.read_text() if log.exists() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in SOURCES:
+            obj = Path(tmp) / (src + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+                 str(CSRC / src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        report = []
+        failed = []
+        for src, _, p in procs:
+            out, _ = p.communicate()
+            report.append(f"== {src}\n{out}")
+            if p.returncode:
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n"
+                               + "\n".join(report))
+        tmp_so = Path(tmp) / so.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:4], "-shared", "-o", str(tmp_so),
+             *[str(o) for _, o, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        text = "\n".join(report)
+        log.write_text(text)
+        os.replace(tmp_so, so)
+    return so, time.perf_counter() - t0, text
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    so, _, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.pmc_error_string.argtypes = [ctypes.c_int]
+    lib.pmc_error_string.restype = ctypes.c_char_p
+    lib.pmc_gn_stats_blocks.argtypes = []
+    lib.pmc_gn_stats_blocks.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def gn_stats_len(groups: int) -> int:
+    """Doubles of GroupNorm partial-sum scratch a layer with ``groups``
+    groups needs."""
+    return max(groups, 1) * library().pmc_gn_stats_blocks() * 2
+
+
+def raise_on_error(err: int, name: str) -> None:
+    if err:
+        msg = library().pmc_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def check_cuda_f32(name: str, t: torch.Tensor, shape=None) -> None:
+    """What every kernel takes: a contiguous float32 tensor on the card,
+    of the expected shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
