@@ -24,7 +24,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("layer_stack.cu", "trunk.cu", "epilogue.cu")
+SOURCES = ("layer_stack.cu", "trunk.cu", "epilogue.cu", "advect.cu")
 HEADERS = ("pmc_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C entry points: name → argument types (every one returns a cudaError_t)
 _SIGNATURES = {
     "pmc_layer_stack": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -43,6 +44,10 @@ _SIGNATURES = {
     "pmc_curl_advect_epilogue": [_P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _P,
                                  _I, _I, _F, _F, _F, _F, _P],
+    # float32 and float64 instances of csrc/advect.cu
+    **{f"pmc_advect_{t}": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                           _P, _I, _I, _I, _D, _D, _D, _I, _I, _P]
+       for t in ("f32", "f64")},
 }
 
 
@@ -137,18 +142,23 @@ def raise_on_error(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def check_cuda_f32(name: str, t: torch.Tensor, shape=None) -> None:
-    """What every kernel takes: a contiguous float32 tensor on the card,
-    of the expected shape."""
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
+               shape=None) -> None:
+    """What every kernel takes: a contiguous tensor of ``dtype`` on the
+    card, of the expected shape."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def check_cuda_f32(name: str, t: torch.Tensor, shape=None) -> None:
+    check_cuda(name, t, torch.float32, shape)
 
 
 def ptr(t) -> int | None:

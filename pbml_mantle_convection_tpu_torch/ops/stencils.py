@@ -56,11 +56,15 @@ def replicate_pad(x, pad=(1, 1, 1, 1)):
     return y.reshape(lead + tuple(y.shape[-2:]))
 
 
-def stamp_temperature_bc(T, bottom: float = 1.0, top: float = 0.0):
+def stamp_temperature_bc(T, bottom: float = 1.0, top: float = 0.0,
+                         core_cool: bool = False):
     """Dirichlet top/bottom + Neumann (copy) sidewalls on ``[..., H, W]``
-    (reference: pytorch_networks_convae.py:465-471). Returns a new tensor."""
+    (reference: pytorch_networks_convae.py:465-471). With ``core_cool``
+    the bottom row is left as it is: it evolves (advect_wi_gaia.py:624-625).
+    Returns a new tensor."""
     T = T.clone()
-    T[..., 0, :] = bottom
+    if not core_cool:
+        T[..., 0, :] = bottom
     T[..., -1, :] = top
     T[..., :, 0] = T[..., :, 1]
     T[..., :, -1] = T[..., :, -2]

@@ -60,11 +60,13 @@ def stability_dt(u_int, v_int, dx_min, cn_max: float = 0.1):
 def advect_diffuse_step(u, v, T, raq_ra, metrics: GridMetrics,
                         dt: Optional[torch.Tensor] = None,
                         cn_max: float = 0.1, bottom_T: float = 1.0,
-                        top_T: float = 0.0):
+                        top_T: float = 0.0, core_cool: bool = False):
     """One explicit upwind advection–diffusion Euler step.
 
-    u, v, T: (..., H, W); raq_ra: scalar source. Returns (T_new, dt) with
-    T_new (..., H, W) and dt a 0-d tensor (reference:
+    u, v, T: (..., H, W); raq_ra: scalar or (..., H-2, W-2) source. With
+    ``core_cool`` the bottom row is left free: it replicates row 1
+    (advect_wi_gaia.py:624-625). Returns (T_new, dt) with T_new
+    (..., H, W) and dt a 0-d tensor (reference:
     pytorch_networks_convae.py:522-568).
     """
     u_int = u[..., 1:-1, 1:-1]
@@ -86,6 +88,25 @@ def advect_diffuse_step(u, v, T, raq_ra, metrics: GridMetrics,
     T_int = T[..., 1:-1, 1:-1] + dt * (
         -u_int * dT_dx - v_int * dT_dy + T_laplace + raq_ra)
     T_new = replicate_pad(T_int)
-    T_new[..., 0, :] = bottom_T
+    if not core_cool:
+        T_new[..., 0, :] = bottom_T
     T_new[..., -1, :] = top_T
     return T_new, dt
+
+
+def viscous_dissipation(u, v, V, metrics: GridMetrics):
+    """EBA viscous-dissipation density Φ = 2η ε̇:ε̇
+    = η [2(∂u/∂x)² + 2(∂v/∂y)² + (∂u/∂y + ∂v/∂x)²] on the interior,
+    (..., H-2, W-2), from (..., H, W) velocities and viscosity. Centred
+    differences over the one-sided metric pairs. The energy equation
+    gains +(Di/Ra)·Φ under GAIA's MCEnergy=Boussinesq/Compress
+    (prepare_gaia_ini.py:61-62), with Ra = 1 (prepare_gaia_ini.py:117)."""
+    dx_c = metrics.dx_l + metrics.dx_r    # x[c+1] - x[c-1]
+    dy_c = metrics.dy_t + metrics.dy_b    # y[r+1] - y[r-1]
+    du_dx = (u[..., 1:-1, 2:] - u[..., 1:-1, :-2]) / dx_c
+    dv_dx = (v[..., 1:-1, 2:] - v[..., 1:-1, :-2]) / dx_c
+    du_dy = (u[..., 2:, 1:-1] - u[..., :-2, 1:-1]) / dy_c
+    dv_dy = (v[..., 2:, 1:-1] - v[..., :-2, 1:-1]) / dy_c
+    shear = du_dy + dv_dx
+    return V[..., 1:-1, 1:-1] * (
+        2.0 * du_dx**2 + 2.0 * dv_dy**2 + shear**2)

@@ -52,6 +52,12 @@ class Grid:
         return np.ascontiguousarray(np.broadcast_to(y[:, None],
                                                     (self.H, self.W)))
 
+    @cached_property
+    def pos(self) -> np.ndarray:
+        """(H*W, 2) flattened (x, y) positions, the layout of GAIA's
+        ``state["pos"]`` (advect_wi_gaia.py:560-564)."""
+        return np.stack([self.xc.reshape(-1), self.yc.reshape(-1)], axis=1)
+
     def coords(self, device, dtype) -> tuple[torch.Tensor, torch.Tensor]:
         """(xc, yc) as (H, W) tensors on ``device``."""
         return (torch.as_tensor(self.xc, dtype=dtype, device=device),

@@ -4,18 +4,22 @@ Counterpart of the fluidnet branch of the JAX package's ``sim/stepper.py``
 (reference ``TS``, pytorch_networks_convae.py:266-475): per step the FK
 viscosity from the current temperature, the 7-channel surrogate input,
 the Stokes surrogate, velocity unscaling and the explicit
-advection–diffusion update with BC stamping.
+advection–diffusion update with BC stamping. The energy update is
+``ops/advect_kernel.py::advect_diffuse_step_fused``: the CUDA kernel on
+the card, its plain version on the CPU. A stepper without a surrogate
+(``apply_fn=None``) serves the engine's ``mode="GAIA"``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from ..constants import COORD_SCALE, SimParams, velocity_scaler, visc_feature
+from ..ops.advect_kernel import advect_diffuse_step_fused
 from ..ops.stencils import stamp_temperature_bc
-from ..physics.advection import advect_diffuse_step, grid_metrics
+from ..physics.advection import grid_metrics
 from ..physics.viscosity import fk_viscosity_clipped
 from .grid import Grid
 
@@ -72,18 +76,22 @@ class TimeStepper:
     ``apply_fn``: (B, H, W, 7) NHWC → (u, v, p|None), e.g. a
     :class:`~..models.fluidnet.NewFluidNet`; a
     :class:`~..models.fast_path.FastNewFluidNet` also serves the fused
-    path (:meth:`stokes_psi`).
+    path (:meth:`stokes_psi`); None for a stepper without a surrogate.
+    ``core_cool`` leaves the bottom row of :meth:`step` free.
     """
 
     def __init__(self, grid: Grid, params: SimParams,
-                 apply_fn: Callable[..., Any], cn_max: float = 0.99,
+                 apply_fn: Optional[Callable[..., Any]],
+                 cn_max: float = 0.99, core_cool: bool = False,
                  dtype=torch.float32, device=None):
         self.grid, self.params, self.apply_fn = grid, params, apply_fn
-        self.cn_max, self.dtype = cn_max, dtype
+        self.cn_max, self.core_cool, self.dtype = cn_max, core_cool, dtype
         self.device = torch.device(device or "cuda")
         self._static = make_static_fields(grid, params, dtype, self.device)
         self._metrics = grid_metrics(*grid.coords(self.device, dtype),
                                      aspect=grid.aspect)
+        self._raq = torch.full((), params.raq, dtype=dtype,
+                               device=self.device)
         self.scaler = float(velocity_scaler(params.raq, params.fkt,
                                             params.fkp))
 
@@ -102,6 +110,9 @@ class TimeStepper:
     def stokes(self, T):
         """Surrogate Stokes solve: (B, H, W) T → (u, v, p, V), velocities
         in physical (unscaled) units (pytorch_networks_convae.py:377-417)."""
+        if self.apply_fn is None:
+            raise ValueError("TimeStepper.stokes: this stepper has no "
+                             "surrogate (apply_fn=None)")
         fn = self._bound_fast()
         if fn is not None and T.shape[0] == 1:
             V = viscosity(T, self._static, self.params)
@@ -126,7 +137,8 @@ class TimeStepper:
         """Stokes surrogate then the explicit energy update with BC
         stamping; returns (T_new, dt, u, v, p, V)."""
         u, v, p, V = self.stokes(T)
-        T_new, dt = advect_diffuse_step(u, v, T, self.params.raq,
-                                        self._metrics, dt=dt,
-                                        cn_max=self.cn_max)
-        return stamp_temperature_bc(T_new), dt, u, v, p, V
+        T_new, dt = advect_diffuse_step_fused(
+            u, v, T, self._raq, self._metrics, dt=dt, cn_max=self.cn_max,
+            core_cool=self.core_cool)
+        return (stamp_temperature_bc(T_new, core_cool=self.core_cool), dt,
+                u, v, p, V)

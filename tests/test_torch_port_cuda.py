@@ -3,12 +3,14 @@ NVIDIA GPU. Every test is marked ``cuda`` and skips without a card (the
 kernels have no CPU mode); the file imports no JAX, so it runs on the
 machine with the card:
 
-    python -m pytest -o addopts="" -m cuda tests/test_torch_port_cuda.py
+    python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
 import pytest
 import torch
 
+from pbml_mantle_convection_tpu_torch.ops.advect_kernel import (
+    advect_diffuse_step_fused, advect_diffuse_step_plain)
 from pbml_mantle_convection_tpu_torch.ops.branch_kernel import (
     layer_stack, layer_stack_plain, pack_stack)
 from pbml_mantle_convection_tpu_torch.ops.epilogue_kernel import (
@@ -16,6 +18,7 @@ from pbml_mantle_convection_tpu_torch.ops.epilogue_kernel import (
 from pbml_mantle_convection_tpu_torch.ops.merge_kernel import (
     trunk, trunk_plain, trunk_weights)
 from pbml_mantle_convection_tpu_torch.physics.advection import grid_metrics
+from pbml_mantle_convection_tpu_torch.sim.grid import Grid
 
 F32 = torch.float32
 
@@ -113,3 +116,58 @@ def test_cuda_wrappers_raise_on_bad_input(cuda):
         layer_stack(x[:8], sw)
     with pytest.raises(ValueError):
         layer_stack(x.transpose(1, 2).contiguous().transpose(1, 2), sw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,field,core_cool,clip_T", [
+    (torch.float32, 1, False, False, False),
+    (torch.float32, 2, True, False, False),
+    (torch.float32, 2, False, True, True),
+    (torch.float64, 1, True, False, False),
+    (torch.float64, 2, False, False, False),
+    (torch.float64, 1, True, True, True)])
+def test_cuda_advect_matches_plain(cuda, dtype, B, field, core_cool, clip_T):
+    """The energy step at 128×506: scalar and field sources, core cooling
+    and the clip. max |diff| / max |plain| ≤ 1e-5 in float32 (the kernel
+    contracts multiply-adds into FMAs), ≤ 1e-12 in float64; dt is the
+    same max/min reduction and formula, so it agrees to the last bits."""
+    H, W = 128, 506
+    met = grid_metrics(*Grid(H=H, W=W).coords(cuda, dtype), aspect=4.0)
+    g = torch.Generator().manual_seed(4)
+    u, v = (40 * torch.randn(B, H, W, generator=g, dtype=dtype)
+            for _ in range(2))
+    T = torch.rand(B, H, W, generator=g, dtype=dtype) * (3 if clip_T else 1)
+    src = (torch.randn(B, H - 2, W - 2, generator=g, dtype=dtype) + 2.0
+           if field else torch.tensor(2.5, dtype=dtype))
+    u, v, T, src = (t.to(cuda) for t in (u, v, T, src))
+    n0 = advect_diffuse_step_fused.launches
+    out, dt = advect_diffuse_step_fused(u, v, T, src, met, cn_max=0.99,
+                                        core_cool=core_cool, clip_T=clip_T)
+    assert advect_diffuse_step_fused.launches == n0 + 1
+    ref, dt_ref = advect_diffuse_step_plain(u, v, T, src, met, cn_max=0.99,
+                                            core_cool=core_cool,
+                                            clip_T=clip_T)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert out.dtype == dtype and out.shape == (B, H, W)
+    assert abs(float(dt) - float(dt_ref)) <= 1e-6 * float(dt_ref)
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    # a given dt is used as it is
+    out2, dt2 = advect_diffuse_step_fused(u, v, T, src, met, dt=dt_ref,
+                                          core_cool=core_cool, clip_T=clip_T)
+    assert dt2 is dt_ref
+    assert float((out2 - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_advect_raises_on_bad_input(cuda):
+    H, W = 16, 24
+    met = grid_metrics(*Grid(H=H, W=W).coords(cuda, F32), aspect=4.0)
+    u = torch.randn(1, H, W, device=cuda)
+    with pytest.raises(TypeError):
+        advect_diffuse_step_fused(u.half(), u.half(), u.half(), 1.0, met)
+    with pytest.raises(TypeError):      # metrics of another dtype
+        advect_diffuse_step_fused(u.double(), u.double(), u.double(), 1.0,
+                                  met)
+    with pytest.raises(ValueError):
+        advect_diffuse_step_fused(u, u[:, :, :-1].contiguous(), u, 1.0, met)

@@ -4,7 +4,9 @@
 Runs the coupled ML_STOKES rollout of the flagship NewFluidNet (levels=5,
 c_h=16, repeats=6, k=5, learned padding, curl head; seeded random weights;
 built by ``chip_smoke.py::flagship``) through the fused executor on one
-NVIDIA GPU and prints:
+NVIDIA GPU — or, with ``--mode``, one of the other engine modes of
+``chip_smoke.py::mode_engines`` (GAIA, GAIA-skip3, ML_PRE, or ML_STOKES
+with core cooling, Di=0.5 and decay) — and prints:
 
 * wall time per step with a synchronise at the end of the run, and the
   host's time to enqueue one step (median over 2-step runs that start on
@@ -18,9 +20,10 @@ NVIDIA GPU and prints:
 Usage (from the repository root, on the machine with the card)::
 
     python3 tools/torch_port_profile.py [--H 128] [--W 506] [--steps 50]
-        [--trace-dir build/profiles]
+        [--mode GAIA] [--trace-dir build/profiles]
 
-The Chrome trace goes to ``<trace-dir>/torch_port_profile_<H>x<W>.json``.
+The Chrome trace goes to
+``<trace-dir>/torch_port_profile_<mode>_<H>x<W>.json``.
 """
 
 from __future__ import annotations
@@ -44,6 +47,9 @@ def main() -> int:
     ap.add_argument("--H", type=int, default=128)
     ap.add_argument("--W", type=int, default=506)
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--mode", default="ML_STOKES",
+                    help="ML_STOKES (the fused flagship) or a name of "
+                         "chip_smoke.py::mode_engines")
     ap.add_argument("--trace-dir", default=str(ROOT / "build" / "profiles"))
     args = ap.parse_args()
 
@@ -53,16 +59,21 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import flagship
+    from chip_smoke import flagship, mode_engines
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     H, W, n = args.H, args.W, args.steps
-    _, fast, engine, T0 = flagship(H, W, "cuda")    # chip_smoke.py's model
-    eng = engine(fast)
-    state, _ = eng.multi_step(eng.init_state(T0), 20)   # builds, warms
+    if args.mode == "ML_STOKES":
+        _, fast, engine, T0 = flagship(H, W, "cuda")  # chip_smoke.py's model
+        eng = engine(fast)
+    else:
+        T0, modes = mode_engines(H, W)
+        eng = modes[args.mode][0]
+    warm = 20 if args.mode == "ML_STOKES" else 1
+    state, _ = eng.multi_step(eng.init_state(T0), warm)   # builds, warms
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -70,7 +81,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_wall = time.perf_counter() - t0
     host = []
-    for _ in range(10):
+    for _ in range(10 if args.mode == "ML_STOKES" else 2):
         t0 = time.perf_counter()
         state, _ = eng.multi_step(state, 2)
         host.append((time.perf_counter() - t0) / 2)
@@ -84,7 +95,7 @@ def main() -> int:
         t_prof = time.perf_counter() - t1
     out = Path(args.trace_dir)
     out.mkdir(parents=True, exist_ok=True)
-    trace_path = out / f"torch_port_profile_{H}x{W}.json"
+    trace_path = out / f"torch_port_profile_{args.mode}_{H}x{W}.json"
     prof.export_chrome_trace(str(trace_path))
 
     by_kernel = defaultdict(float)
@@ -94,7 +105,7 @@ def main() -> int:
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
     result = {
-        "card": card, "grid": [H, W], "steps": n,
+        "card": card, "mode": args.mode, "grid": [H, W], "steps": n,
         "wall_ms_per_step": t_wall / n * 1e3,
         "host_enqueue_ms_per_step": float(np.median(host)) * 1e3,
         "profiled_wall_ms_per_step": t_prof / n * 1e3,
