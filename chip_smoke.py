@@ -24,7 +24,17 @@ Run from the repository root, with no arguments::
    boundary rows, prints ms/step and PT iterations, and holds each of a
    few steps against a plain reference step composed here from the plain
    functions;
-5. prints one JSON line of per-kernel numbers, the card line again, and
+5. serves the Transolver: holds both slice-attention kernels against
+   their plain versions at BH=8, N=64,768 with (D, G) = (16, 32) (the
+   serving shape) and (32, 64), and at a ragged N, and times them; drives
+   ``cli/benchmark.py --what inference -net transolver_structured`` at
+   the serving configuration (``ModelConfig`` defaults: 128×506, 5
+   layers, n_hidden=128, 8 heads, 32 slices; seeded random weights) and
+   checks 5 + 5 slice-attention launches per forward; splits one forward
+   into projections, slice attention and the rest; compares the kernel
+   path's u, v with the einsum formulation's; runs TransolverIrregular
+   once at the same N;
+6. prints one JSON line of per-kernel numbers, the card line again, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no result
@@ -53,6 +63,8 @@ REPLACES = {
         "pbml_mantle_convection_tpu/ops/epilogue_kernel.py:60",
     "advect_diffuse_step_fused":
         "pbml_mantle_convection_tpu/ops/pallas_kernels.py:46",
+    "slice_pool": "pbml_mantle_convection_tpu/ops/slice_attention.py:44",
+    "slice_deslice": "pbml_mantle_convection_tpu/ops/slice_attention.py:60",
 }
 SOURCES = {
     "layer_stack": "pbml_mantle_convection_tpu_torch/csrc/layer_stack.cu",
@@ -61,14 +73,26 @@ SOURCES = {
         "pbml_mantle_convection_tpu_torch/csrc/epilogue.cu",
     "advect_diffuse_step_fused":
         "pbml_mantle_convection_tpu_torch/csrc/advect.cu",
+    "slice_pool": "pbml_mantle_convection_tpu_torch/csrc/slice_attention.cu",
+    "slice_deslice":
+        "pbml_mantle_convection_tpu_torch/csrc/slice_attention.cu",
 }
 # kernel vs plain version, max |diff| / max |plain|: both are float32 with
 # sums in another order (25·c_in-term conv dots, double vs float GroupNorm
 # statistics, the epilogue's analytic mean cancellation); the energy step
 # differs only by FMA contraction (1e-12 in float64)
+# the slice kernels in float32 against their plain versions in float64:
+# float32 sums over N (pool) or G (deslice); 1e-12 when both are float64
 TOL = {"layer_stack": 1e-4, "trunk": 1e-4, "curl_advect_epilogue": 1e-5,
-       "advect_diffuse_step_fused": 1e-5}
+       "advect_diffuse_step_fused": 1e-5, "slice_pool": 1e-5,
+       "slice_deslice": 1e-5}
 TOL_ADVECT_F64 = 1e-12
+TOL_SLICE_F64 = 1e-12
+# one Transolver forward, kernel path vs the einsum formulation, relative
+# to max |plain|: the stream function (the last block's output) after 5
+# blocks of float32 attention; u and v are its central differences, ~10x
+# smaller than it (printed), so the same absolute error weighs ~10x more
+TOL_TRANSOLVER = {"psi": 1e-4, "u": 1e-3, "v": 1e-3}
 # 10 coupled steps, kernel path vs module path: the random-weight network
 # (34 GroupNorm layers) feeds its float32 reassociation noise back through
 # T → viscosity → velocities every step
@@ -548,6 +572,219 @@ def run_modes(counters, H=128, W=506):
     return launch
 
 
+def slice_inputs(BH, N, D, G, dtype, seed, device="cuda"):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device=device,
+                                   dtype=dtype)
+
+    temp = 0.3 + 0.4 * torch.rand(BH, generator=g, device=device,
+                                  dtype=dtype)
+    return (rand(BH, N, D), rand(BH, N, D), rand(D, G, scale=0.3),
+            rand(G, scale=0.1), temp, rand(BH, G, D))
+
+
+def slice_errors(args):
+    """(max_abs_err, rel) of both kernels against their plain versions on
+    the same inputs, the plain versions run in float64 (a float32 plain
+    product sums 64,768 terms in its own order and is no closer to the
+    exact sums than the kernel: both errors are printed), and whether a
+    second pool call gives the same bits."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
+        slice_deslice, slice_deslice_plain, slice_pool, slice_pool_plain)
+    fx, xm, ws, bs, temp, tok = args
+    wide = [a.double() for a in args]
+    num, den = slice_pool(fx, xm, ws, bs, temp)
+    ref = slice_pool_plain(*wide[:5])
+    pool = max(rel_err(num.double(), ref[0]), rel_err(den.double(), ref[1]),
+               key=lambda e: e[1])
+    pool_plain = max((rel_err(a.double(), b)[1] for a, b in
+                      zip(slice_pool_plain(fx, xm, ws, bs, temp), ref)))
+    same = all(bool(torch.equal(a, b)) for a, b in
+               zip((num, den), slice_pool(fx, xm, ws, bs, temp)))
+    desl = rel_err(slice_deslice(xm, tok, ws, bs, temp).double(),
+                   slice_deslice_plain(wide[1], wide[5], *wide[2:5]))
+    return pool, desl, same, pool_plain
+
+
+def slice_work(BH, N, D, G, itemsize=4):
+    """(bytes, flops) of one slice_pool or slice_deslice call: two
+    (BH, N, D) arrays read or written once (weights and the small outputs
+    aside); the logits' and the sums' multiply-adds, 2 flops each (the
+    softmax's exps not counted)."""
+    return 2 * BH * N * D * itemsize, 4 * BH * N * G * D
+
+
+def check_slice(heads=8, N=128 * 506, device="cuda"):
+    """Phase 5a: both slice kernels against their plain versions at the
+    serving shape and at D=32, G=64, then at a ragged N and in float64;
+    times each. Returns the serving shape's records."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
+        slice_deslice, slice_deslice_plain, slice_pool, slice_pool_plain)
+    rec = {}
+    for D, G in ((16, 32), (32, 64)):
+        args = slice_inputs(heads, N, D, G, torch.float32, D, device)
+        fx, xm, ws, bs, temp, tok = args
+        (pe, pr), (de, dr), same, ppr = slice_errors(args)
+        calls = {
+            "slice_pool": (lambda: slice_pool(fx, xm, ws, bs, temp),
+                           lambda: slice_pool_plain(fx, xm, ws, bs, temp),
+                           pe, pr),
+            "slice_deslice": (
+                lambda: slice_deslice(xm, tok, ws, bs, temp),
+                lambda: slice_deslice_plain(xm, tok, ws, bs, temp), de, dr)}
+        bms, by = bound_ms(*slice_work(heads, N, D, G))
+        for name, (fn, plain, err, rel) in calls.items():
+            ms = cuda_ms(fn, n=50)
+            qms = queued_ms(fn)
+            pms = cuda_ms(plain, n=10)
+            note = (f"; float32 plain vs float64 rel {ppr:.3e}"
+                    if name == "slice_pool" else "")
+            print(f"{name} BH={heads} N={N} D={D} G={G} f32: max_abs_err="
+                  f"{err:.3e} rel={rel:.3e} (tol {TOL[name]}{note}) "
+                  f"ms={ms:.4f} "
+                  f"(launches queued: {qms:.4f}) plain_ms={pms:.4f} "
+                  f"bound_ms={bms:.4f} ({by}); library_ms: none (no one "
+                  f"PyTorch call computes it)")
+            if not rel <= TOL[name]:
+                raise AssertionError(f"{name} D={D} G={G} disagrees: {rel}")
+            if (D, G) == (16, 32):
+                rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                 bound_ms=bms, bound_by=by, library_ms=None)
+        if not same:
+            raise AssertionError("slice_pool: two calls differ")
+    for BH, n, D, G, dtype, tol in (
+            (heads, N - 77, 16, 32, torch.float32, TOL["slice_pool"]),
+            (heads, 4133, 32, 64, torch.float64, TOL_SLICE_F64),
+            (3, 1001, 64, 64, torch.float64, TOL_SLICE_F64)):
+        (pe, pr), (de, dr), same, _ = slice_errors(
+            slice_inputs(BH, n, D, G, dtype, n, device))
+        print(f"slice kernels BH={BH} N={n} D={D} G={G} {dtype}: pool "
+              f"rel={pr:.3e}, deslice rel={dr:.3e} (tol {tol}), "
+              f"repeatable={same}")
+        if not (pr <= tol and dr <= tol and same):
+            raise AssertionError(f"slice kernels disagree at N={n}, D={D}")
+    conv_out = torch.randn(1, heads * 16, N, device=device)
+    ms = cuda_ms(lambda: conv_out.reshape(1, heads, 16, N).transpose(2, 3)
+                 .contiguous(), n=50)
+    print(f"layout copy (1, {heads * 16}, {N}) -> (1, {heads}, {N}, 16): "
+          f"{ms:.4f} ms "
+          f"({2 * conv_out.numel() * 4 / 1e6:.1f} MB moved)")
+    return rec
+
+
+def transolver_input(H, W, device="cuda"):
+    import torch
+    from pbml_mantle_convection_tpu_torch.cli.benchmark import (
+        inference_input)
+    from pbml_mantle_convection_tpu_torch.constants import SimParams
+    from pbml_mantle_convection_tpu_torch.sim.grid import Grid
+    return inference_input("transolver", Grid(H=H, W=W,
+                                              aspect=(W - 2) / (H - 2)),
+                           SimParams(3.0, 1e8, 10.0), torch.float32, device)
+
+
+def run_transolver(counters, iters=50, H=128, W=506, device="cuda"):
+    """Phase 5b: the Transolver serving path through the port's CLI, with
+    its launch counts. Returns them."""
+    from pbml_mantle_convection_tpu_torch.cli.benchmark import (
+        main as benchmark)
+    for fn in counters.values():
+        fn.launches = 0
+    ms = benchmark(["--what", "inference", "-net", "transolver_structured",
+                    "--iters", str(iters), "--H", str(H), "--W", str(W),
+                    "--device", device])
+    got = {k: fn.launches for k, fn in counters.items()}
+    fwd = iters + 1                         # the CLI's warm-up pass
+    want = {k: 5 * fwd if k.startswith("slice") else 0 for k in counters}
+    if got != want:
+        raise AssertionError(f"transolver: launches {got}, want {want}")
+    print(f"transolver_structured {H}x{W} serving: {ms:.4f} ms per forward, "
+          f"launches {got} = 5 slice_pool + 5 slice_deslice per forward "
+          f"({fwd} forwards)")
+    return got
+
+
+def transolver_checks(counters, H=128, W=506, device="cuda"):
+    """Phase 5c: one forward split by layer, the kernel path against the
+    einsum formulation, and TransolverIrregular at the same N."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.models import transolver
+    from pbml_mantle_convection_tpu_torch.models.registry import (
+        ModelConfig, build_model)
+    from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
+        slice_attention_fused, slice_attention_plain)
+    model = build_model(ModelConfig(network="transolver_structured", H=H,
+                                    W=W), device=device)
+    x = transolver_input(H, W, device)
+    N = H * W
+    with torch.no_grad():
+        total = cuda_ms(lambda: model(x), n=20)
+        attn = model.blocks_0.Attn
+        h = torch.randn(1, N, attn.heads * attn.dim_head, device=device)
+        img = h.reshape(1, H, W, -1).permute(0, 3, 1, 2)
+        proj = cuda_ms(lambda: (attn.in_project_fx(img),
+                                attn.in_project_x(img)), n=20)
+        fx_mid, x_mid = attn.project(h)
+        args = (fx_mid, x_mid, attn.in_project_slice.weight.t(),
+                attn.in_project_slice.bias,
+                torch.clamp(attn.temperature, 0.1, 5.0),
+                attn.to_q.weight.t(), attn.to_k.weight.t(),
+                attn.to_v.weight.t())
+        core = cuda_ms(lambda: slice_attention_fused(*args), n=20)
+        core_plain = cuda_ms(lambda: slice_attention_plain(*args), n=10)
+        L = model.n_layers
+        print(f"transolver forward {H}x{W} f32: {total:.4f} ms; per block "
+              f"x {L}: projection convs {proj:.4f} ms (2 x 3x3 128->128, "
+              f"{2 * 2 * 9 * 128 * 128 * N / 1e9:.1f} GFLOP), "
+              f"slice_attention_fused {core:.4f} ms (einsum formulation "
+              f"{core_plain:.4f}); the rest {total - L * (proj + core):.4f} "
+              f"ms per forward")
+
+        psi = []
+        hook = getattr(model, f"blocks_{L - 1}").register_forward_hook(
+            lambda mod, inp, out: psi.append(out))
+        u, v, p = model(x)
+        transolver.slice_attention_fused = slice_attention_plain
+        try:
+            up, vp, _ = model(x)
+        finally:
+            transolver.slice_attention_fused = slice_attention_fused
+            hook.remove()
+    if p is not None or u.shape != (1, H - 2, W - 2):
+        raise AssertionError(f"transolver: output shape {tuple(u.shape)}")
+    print(f"transolver: max |psi| / max |u| = "
+          f"{float(psi[1].abs().max() / up.abs().max()):.1f}")
+    for name, a, b in (("psi", *psi), ("u", u, up), ("v", v, vp)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"transolver: {name} is not finite")
+        err, rel = rel_err(a, b)
+        print(f"transolver forward kernel vs einsum path: {name} "
+              f"max_abs_err={err:.3e} rel={rel:.3e} "
+              f"(tol {TOL_TRANSOLVER[name]})")
+        if not rel <= TOL_TRANSOLVER[name]:
+            raise AssertionError(f"transolver: kernel path diverges: {name}")
+
+    irregular = build_model(ModelConfig(network="transolver"), device=device)
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.no_grad():
+        out = irregular(x)
+        got = {k: fn.launches for k, fn in counters.items()}
+        ms = cuda_ms(lambda: irregular(x), n=5)
+    want = {k: 5 if k.startswith("slice") else 0 for k in counters}
+    if got != want or out.shape != (1, N, 1) \
+            or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"transolver (irregular): launches {got}, "
+                             f"shape {tuple(out.shape)}")
+    print(f"transolver (irregular) N={N}: {ms:.4f} ms per forward, "
+          f"launches {got} per forward, output finite")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -560,6 +797,8 @@ def main() -> int:
     from pbml_mantle_convection_tpu_torch.ops.epilogue_kernel import (
         curl_advect_epilogue)
     from pbml_mantle_convection_tpu_torch.ops.merge_kernel import trunk
+    from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
+        slice_deslice, slice_pool)
 
     card = card_line()
     print(f"card: {card}")
@@ -586,6 +825,16 @@ def main() -> int:
     for k, n in run_modes(counters).items():
         launch[k] += n
     print(f"engine modes: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rec.update(check_slice())
+    counters.update(slice_pool=slice_pool, slice_deslice=slice_deslice)
+    for k in ("slice_pool", "slice_deslice"):
+        launch[k] = 0
+    for k, n in run_transolver(counters).items():
+        launch[k] += n
+    transolver_checks(counters)
+    print(f"transolver: {time.perf_counter() - t0:.1f} s")
 
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launch[k], **rec[k])

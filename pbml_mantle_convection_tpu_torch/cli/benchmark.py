@@ -1,0 +1,182 @@
+"""Benchmark CLI: surrogate inference latency and coupled rollout throughput.
+
+Counterpart of the JAX package's ``cli/benchmark.py``, with its arguments
+and its metric names; prints one JSON line. ``--what inference`` times
+``--iters`` forward passes at batch 1 after one warm-up pass (the
+reference's timing loop, load_fluidnet.ipynb cell 7): NewFluidNet through
+the fused executor (``--raw-module``: the module), the Transolvers through
+their forward. ``--what rollout`` times ``--steps`` coupled ML_STOKES
+steps of a NewFluidNet at B = 1 after a short warm-up. The input comes
+from a seeded temperature field, the weights from seed 0::
+
+    python -m pbml_mantle_convection_tpu_torch.cli.benchmark \\
+        --what inference -net transolver_structured
+
+It runs on the card; only ``--device cpu`` runs it elsewhere, and with no
+card and no such flag it fails. It leaves PyTorch's TF32 settings as the
+caller has them (by default cuDNN convs may use TF32) and prints them
+beside the latency.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from ..constants import SimParams
+from ..models.fast_path import FastNewFluidNet, unsupported_reason
+from ..models.registry import ModelConfig, build_model
+from ..sim.engine import SimEngine
+from ..sim.grid import Grid
+from ..sim.stepper import (TimeStepper, assemble_fluidnet_input,
+                           make_static_fields)
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="benchmarks")
+    p.add_argument("--what", choices=["inference", "rollout", "train"],
+                   default="inference")
+    p.add_argument("-net", "--network", type=str, default="newfluidnet")
+    p.add_argument("-l", "--levels", type=int, default=5)
+    p.add_argument("-f", "--c_h", type=int, default=16)
+    p.add_argument("-r", "--repeats", type=int, default=6)
+    p.add_argument("-k", "--kernel", type=int, default=5)
+    p.add_argument("-pad", "--r_p", type=str, default="learned")
+    p.add_argument("--H", type=int, default=128)
+    p.add_argument("--W", type=int, default=506)
+    p.add_argument("--iters", type=int, default=500)
+    p.add_argument("--steps", type=int, default=500)
+    p.add_argument("--dtype", type=str, default="float32",
+                   choices=sorted(_DTYPES))
+    p.add_argument("--batch", type=int, default=1,
+                   help="simultaneous simulations per rollout step (the "
+                        "port runs B = 1)")
+    p.add_argument("--roll_forward", type=int, default=1,
+                   help="--what train (not ported)")
+    p.add_argument("--raw-module", action="store_true",
+                   help="time the plain module instead of the fused "
+                        "executor")
+    p.add_argument("--donate", action="store_true",
+                   help="--what train (not ported)")
+    p.add_argument("--remat", action="store_true",
+                   help="--what train (not ported)")
+    p.add_argument("--sharded", action="store_true",
+                   help="multi-card rollout (not ported)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default) or 'cpu'")
+    return p
+
+
+def _unported(args) -> str | None:
+    if args.what == "train":
+        return "--what train (ROADMAP queue 1 item 4)"
+    if args.sharded:
+        return "--sharded (ROADMAP queue 1 item 7)"
+    if args.what == "rollout" and args.batch > 1:
+        return "rollout with --batch > 1 (ROADMAP queue 1 item 3)"
+    if args.what == "rollout" and args.network != "newfluidnet":
+        return (f"rollout of {args.network!r} (the port's stepper runs the "
+                f"FluidNet family; ROADMAP queue 1 item 6)")
+    return None
+
+
+def seeded_temperature(grid: Grid, seed: int = 0) -> np.ndarray:
+    """(1, H, W) initial field of ``bench.py`` plus 1% seeded noise."""
+    rng = np.random.default_rng(seed)
+    T = (1.0 - grid.yc + 0.05 * np.sin(6.28 * grid.xc)
+         + 0.01 * rng.standard_normal(grid.yc.shape))
+    return np.clip(T, 0.0, 1.0)[None]
+
+
+def inference_input(network: str, grid: Grid, params: SimParams, dtype,
+                    device) -> torch.Tensor:
+    """The 7-channel surrogate input of :func:`seeded_temperature`:
+    (1, H, W, 7), or (1, H·W, 7) flattened over the grid for the
+    Transolvers (the JAX ``data/dataset.py::UnstructuredDataset``)."""
+    T = torch.as_tensor(seeded_temperature(grid), dtype=dtype, device=device)
+    x, _ = assemble_fluidnet_input(
+        T, make_static_fields(grid, params, dtype, device), params)
+    if "transolver" in network:
+        x = x.reshape(1, grid.H * grid.W, x.shape[-1])
+    return x
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    reason = _unported(args)
+    if reason is not None:
+        raise NotImplementedError(f"not ported yet: {reason}")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("benchmark: no CUDA device (pass --device cpu to "
+                         "run on the CPU)")
+    dtype = _DTYPES[args.dtype]
+    H, W = args.H, args.W
+    mc = ModelConfig(network=args.network, levels=args.levels,
+                     c_h=args.c_h, repeats=args.repeats, kernel=args.kernel,
+                     r_p=args.r_p, loss_type="curl", p_pred=False,
+                     H=H, W=W, dtype=dtype)
+    model = build_model(mc, device=device)
+    grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
+    params = SimParams(3.0, 1e8, 10.0)
+    fast = (not args.raw_module and args.network == "newfluidnet"
+            and dtype == torch.float32 and unsupported_reason(model) is None)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+    if args.what == "inference":
+        x = inference_input(args.network, grid, params, dtype, device)
+        fwd = FastNewFluidNet(model, H, W) if fast else model
+        with torch.no_grad():
+            fwd(x)
+            sync(device)
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                fwd(x)
+            sync(device)
+        ms = (time.perf_counter() - t0) / args.iters * 1e3
+        rec = {"metric": f"inference_latency_{args.network}_{H}x{W}",
+               "value": round(ms, 4), "unit": "ms", "iters": args.iters,
+               "device": name}
+        if device.type == "cuda":
+            # the Transolver's convs and Dense layers are cuDNN / cuBLAS
+            # calls, whose float32 speed and numerics follow these flags
+            rec.update(tf32_conv=torch.backends.cudnn.allow_tf32,
+                       tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
+        print(json.dumps(rec))
+        return ms
+
+    # rollout: the coupled ML_STOKES engine, B = 1
+    apply_fn = FastNewFluidNet(model, H, W) if (
+        dtype == torch.float32 and unsupported_reason(model) is None) \
+        else model
+    engine = SimEngine(TimeStepper(grid, params, apply_fn, cn_max=0.99,
+                                   dtype=dtype, device=device))
+    state = engine.init_state(seeded_temperature(grid))
+    state, _ = engine.multi_step(state, min(args.steps, 20))   # warm-up
+    sync(device)
+    t0 = time.perf_counter()
+    state, _ = engine.multi_step(state, args.steps)
+    sync(device)
+    sps = args.steps / (time.perf_counter() - t0)
+    if not bool(torch.isfinite(state.T).all()):
+        raise RuntimeError("rollout: T is not finite")
+    print(json.dumps({"metric": f"rollout_steps_per_s_{H}x{W}",
+                      "value": round(sps, 2), "unit": "steps/s",
+                      "device": name}))
+    return sps
+
+
+if __name__ == "__main__":
+    main()

@@ -31,7 +31,8 @@ from .fluidnet import NewFluidNet
 from .layers import fluid_layer_groups
 
 
-def _unsupported(m: NewFluidNet) -> Optional[str]:
+def unsupported_reason(m: NewFluidNet) -> Optional[str]:
+    """Why the fused executor cannot run ``m``, or None."""
     if m.r_p != "learned" or m.f != 5:
         return f"r_p={m.r_p!r}, f={m.f} (needs learned padding, k=5)"
     if m.factor != 2:
@@ -55,7 +56,7 @@ class FastNewFluidNet:
     """
 
     def __init__(self, model: NewFluidNet, H: int, W: int):
-        reason = _unsupported(model)
+        reason = unsupported_reason(model)
         if reason is not None:
             raise ValueError(f"FastNewFluidNet: unsupported config: {reason}")
         model.check_size(H, W)

@@ -1,0 +1,127 @@
+"""Model registry and channel-count derivation.
+
+Counterpart of the JAX package's ``models/registry.py``: one typed config
+(the same fields and the same ``channels`` rule) and ``build_model``. The
+port builds the families it has: ``newfluidnet``, ``transolver_structured``
+and ``transolver``. Any other network raises ``NotImplementedError``
+naming its ROADMAP item; none silently turns into another model.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence, Tuple
+
+import torch
+
+from .fluidnet import NewFluidNet
+from .transolver import TransolverIrregular, TransolverStructured2D
+
+# networks of the JAX registry that the port does not build yet
+_UNPORTED = {
+    "fluidnet": "ROADMAP queue 1 item 6",
+    "ifluidnet": "ROADMAP queue 1 item 6",
+    "halfnewfluidnet": "ROADMAP queue 1 item 6",
+    "multiscalenewfluidnet": "ROADMAP queue 1 item 6",
+    "vit": "ROADMAP queue 1 item 6",
+    "unet": "ROADMAP queue 1 item 5",
+    "iunet": "ROADMAP queue 1 item 5",
+    "convae": "ROADMAP queue 1 item 5",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The JAX ``ModelConfig``'s fields (multigpu.py:911-1087); ``dtype``
+    is a torch dtype (None: float32)."""
+
+    network: str = "newfluidnet"
+    levels: int = 6
+    c_h: int = 16
+    act_fn: str = "gelu"
+    r_p: str = "learned"
+    loss_type: str = "curl"
+    use_symm: bool = False
+    dilation: int = 1
+    a_bound: float = 10.0
+    repeats: int = 4
+    kernel: int = 5
+    p_pred: bool = False
+    spectral_conv: bool = False
+    blurr: bool = False
+    drop_rate: float = 0.0
+    factor: int = 2
+    multi_scales: Sequence[float] = ()
+    # transolver-specific
+    n_hidden: int = 128
+    n_head: int = 8
+    slice_num: int = 32
+    mlp_ratio: int = 1
+    n_layers: int = 5
+    # grid
+    H: int = 128
+    W: int = 506
+    dtype: Any = None
+
+    @property
+    def channels(self) -> Tuple[int, int]:
+        """(c_i, c_o) derivation (multigpu.py:1072-1087)."""
+        net = self.network
+        if net == "ifluidnet":
+            c_i, c_o = 9, 3
+        elif "fluidnet" in net:
+            c_i, c_o = 7, 3
+        elif net == "convae":
+            c_i, c_o = 3, 3
+        elif net in ("unet", "iunet"):
+            c_i, c_o = 11, 4
+            if not self.p_pred:
+                c_i -= 1
+        elif "transolver" in net or net == "vit":
+            c_i, c_o = 7, 3  # 2 coords + 5 function channels
+        else:
+            raise ValueError(f"unknown network {net!r}")
+        if self.loss_type == "curl":
+            c_o -= 1
+        if not self.p_pred:
+            c_o -= 1
+        return c_i, c_o
+
+
+def build_model(cfg: ModelConfig, seed: int = 0, device=None):
+    """The port's module for ``cfg.network``, weights from ``seed``, on
+    ``device`` (default: the card)."""
+    net = cfg.network
+    c_i, c_o = cfg.channels
+    if net in _UNPORTED:
+        raise NotImplementedError(f"network {net!r} is not ported yet "
+                                  f"({_UNPORTED[net]})")
+    dtype = cfg.dtype or torch.float32
+    common = dict(seed=seed, device=device, dtype=dtype)
+    if net == "newfluidnet":
+        options = {"use_symm": False, "dilation": 1, "spectral_conv": False,
+                   "blurr": False, "drop_rate": 0.0}
+        unported = [k for k, v in options.items() if getattr(cfg, k) != v]
+        if unported:
+            raise NotImplementedError(
+                f"newfluidnet options {unported} are not ported yet "
+                f"(ROADMAP queue 1 item 6)")
+        return NewFluidNet(levels=cfg.levels, c_i=c_i, c_h=cfg.c_h, c_o=c_o,
+                           act_fn=cfg.act_fn, r_p=cfg.r_p,
+                           loss_type=cfg.loss_type, a_bound=cfg.a_bound,
+                           repeats=cfg.repeats, f=cfg.kernel,
+                           p_pred=cfg.p_pred, factor=cfg.factor, **common)
+    if net == "transolver":
+        return TransolverIrregular(
+            space_dim=2, fun_dim=5, n_layers=cfg.n_layers,
+            n_hidden=cfg.n_hidden, n_head=cfg.n_head,
+            mlp_ratio=cfg.mlp_ratio, out_dim=max(1, c_o),
+            slice_num=cfg.slice_num, **common)
+    if net == "transolver_structured":
+        return TransolverStructured2D(
+            H=cfg.H, W=cfg.W, space_dim=2, fun_dim=5,
+            n_layers=cfg.n_layers, n_hidden=cfg.n_hidden,
+            n_head=cfg.n_head, mlp_ratio=cfg.mlp_ratio,
+            out_dim=max(1, c_o), slice_num=cfg.slice_num,
+            a_bound=cfg.a_bound, p_pred=cfg.p_pred, kernel=3, **common)
+    raise ValueError(f"unknown network {net!r}")

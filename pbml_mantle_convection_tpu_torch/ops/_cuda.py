@@ -24,7 +24,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("layer_stack.cu", "trunk.cu", "epilogue.cu", "advect.cu")
+SOURCES = ("layer_stack.cu", "trunk.cu", "epilogue.cu", "advect.cu",
+           "slice_attention.cu")
 HEADERS = ("pmc_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,6 +48,12 @@ _SIGNATURES = {
     # float32 and float64 instances of csrc/advect.cu
     **{f"pmc_advect_{t}": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                            _P, _I, _I, _I, _D, _D, _D, _I, _I, _P]
+       for t in ("f32", "f64")},
+    # float32 and float64 instances of csrc/slice_attention.cu
+    **{f"pmc_slice_pool_{t}": [_P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _P]
+       for t in ("f32", "f64")},
+    **{f"pmc_slice_deslice_{t}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
        for t in ("f32", "f64")},
 }
 

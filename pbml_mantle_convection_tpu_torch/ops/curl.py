@@ -1,9 +1,11 @@
-"""Curl head: divergence-free velocities from a stream function.
+"""Curl heads: divergence-free velocities from a stream function.
 
-Counterpart of ``curl_head_padded`` in the JAX package's ``ops/curl.py``
-(reference: pytorch_networks_convae.py:1369-1386): u = ∂a/∂y,
-v = -∂a/∂x as VALID central differences, replicate-padded back to
-(H, W), antisymmetric free-slip sidewalls and zeroed corners.
+Counterparts of ``curl_head_padded`` and ``curl_head_valid`` in the JAX
+package's ``ops/curl.py``: u = ∂a/∂y, v = -∂a/∂x as VALID central
+differences. The padded head (NewFluidNet, reference:
+pytorch_networks_convae.py:1369-1386) replicate-pads them back to (H, W)
+with antisymmetric free-slip sidewalls and zeroed corners; the valid head
+(Transolver) returns them as they are.
 """
 
 from __future__ import annotations
@@ -32,3 +34,9 @@ def curl_head_padded(a):
     v[..., -1, :] = -v[..., -2, :]
     _zero_corners(v)
     return u, v
+
+
+def curl_head_valid(a):
+    """Transolver curl head: (…, H, W) stream function → (…, H-2, W-2)
+    u, v (reference: Transolver_Structured_Mesh_2D-checkpoint.py:201-204)."""
+    return dy_center(a)[..., :, 1:-1], -dx_center(a)[..., 1:-1, :]

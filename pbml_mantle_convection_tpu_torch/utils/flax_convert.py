@@ -1,17 +1,22 @@
-"""Flax → PyTorch weight bridge for the FluidNet family.
+"""Flax → PyTorch weight bridge for the port's models.
 
-``from_jax_params`` turns a NewFluidNet parameter tree of the JAX package
-(every leaf already a numpy array, so no JAX import is needed here) into
-a ``state_dict`` of this package's :class:`~..models.fluidnet.NewFluidNet`.
-It is the inverse of the JAX package's ``utils/torch_convert.py``:
+``from_jax_params`` turns a parameter tree of the JAX package (every leaf
+already a numpy array, so no JAX import is needed here) into a
+``state_dict`` of this package's model of the same family: the FluidNet
+family (:class:`~..models.fluidnet.NewFluidNet`) and the Transolvers
+(``models/transolver.py``). A path's parts joined by dots name the
+parameter; the leaf is turned by its name and rank:
 
-  conv_0/conv/{conv, conv_top, …}/kernel  → conv_0.conv.{conv, …}.weight
-  conv_0/conv/learnable_bias (1,1,1,C)     → conv_0.conv.learnable_bias (C,)
-  conv_0/gn/GroupNorm_0/{scale, bias}      → conv_0.gn.{weight, bias}
-  convs_{l}_{r}/…, conv_1..3/…             → the same pattern
-  gn_0/GroupNorm_0/{scale, bias}           → gn_0.{weight, bias}
+  …/kernel, 2-D (in, out)              → ….weight (out, in)   Dense
+  …/kernel, 4-D HWIO                   → ….weight OIHW        conv
+  …/in_project_{fx,x}_kernel, 5-D DHWIO → the same name, OIDHW (3-D conv)
+  …/scale                              → ….weight   GroupNorm, LayerNorm
+  …/learnable_bias (1,1,1,C)           → …, (C,)
+  GroupNorm_0 path parts                 are dropped
+  anything else (bias, temperature, placeholder, the 3-D ``_bias``) as it is.
 
-Conv kernels go from HWIO to OIHW.
+It is the inverse of the JAX package's ``utils/torch_convert.py`` on the
+FluidNet family.
 """
 
 from __future__ import annotations
@@ -30,21 +35,29 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
+def _leaf(name: str, a: np.ndarray) -> tuple[str, np.ndarray]:
+    if name == "kernel":
+        if a.ndim == 2:
+            return "weight", a.T
+        if a.ndim == 4:
+            return "weight", a.transpose(3, 2, 0, 1)
+        raise ValueError(f"a {a.ndim}-D 'kernel' leaf has no torch layout")
+    if name.endswith("_kernel") and a.ndim == 5:
+        return name, a.transpose(4, 3, 0, 1, 2)
+    if name == "scale":
+        return "weight", a
+    if name == "learnable_bias":
+        return name, a.reshape(-1)
+    return name, a
+
+
 def from_jax_params(tree: Mapping) -> dict:
-    """Flax NewFluidNet params (numpy leaves) → torch ``state_dict``."""
+    """Flax params (numpy leaves) → torch ``state_dict``."""
     if "params" in tree:
         tree = tree["params"]
     out = {}
     for path, leaf in _flatten(tree):
-        a = np.asarray(leaf)
         parts = [p for p in path if p != "GroupNorm_0"]
-        name = parts[-1]
-        if name == "kernel":
-            parts[-1] = "weight"
-            a = a.transpose(3, 2, 0, 1)          # HWIO → OIHW
-        elif name == "scale":
-            parts[-1] = "weight"
-        elif name == "learnable_bias":
-            a = a.reshape(-1)
-        out[".".join(parts)] = torch.tensor(a)
+        parts[-1], a = _leaf(parts[-1], np.asarray(leaf))
+        out[".".join(parts)] = torch.tensor(np.ascontiguousarray(a))
     return out

@@ -17,6 +17,9 @@ from pbml_mantle_convection_tpu_torch.ops.epilogue_kernel import (
     curl_advect_epilogue, curl_advect_epilogue_plain, epilogue_consts)
 from pbml_mantle_convection_tpu_torch.ops.merge_kernel import (
     trunk, trunk_plain, trunk_weights)
+from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
+    slice_attention_fused, slice_attention_plain, slice_deslice,
+    slice_deslice_plain, slice_pool, slice_pool_plain)
 from pbml_mantle_convection_tpu_torch.physics.advection import grid_metrics
 from pbml_mantle_convection_tpu_torch.sim.grid import Grid
 
@@ -171,3 +174,98 @@ def test_cuda_advect_raises_on_bad_input(cuda):
                                   met)
     with pytest.raises(ValueError):
         advect_diffuse_step_fused(u, u[:, :, :-1].contiguous(), u, 1.0, met)
+
+
+def _slice_inputs(BH, N, D, G, dtype, device, seed=6):
+    g = torch.Generator().manual_seed(seed)
+    fx, xm = (torch.randn(BH, N, D, generator=g, dtype=dtype)
+              for _ in range(2))
+    ws = 0.3 * torch.randn(D, G, generator=g, dtype=dtype)
+    bs = 0.1 * torch.randn(G, generator=g, dtype=dtype)
+    temp = 0.3 + 0.4 * torch.rand(BH, generator=g, dtype=dtype)
+    tok = torch.randn(BH, G, D, generator=g, dtype=dtype)
+    return [t.to(device) for t in (fx, xm, ws, bs, temp, tok)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("BH,N,D,G", [(6, 200, 8, 16), (8, 4133, 16, 32),
+                                      (3, 1000, 32, 64), (2, 300, 64, 64)])
+def test_cuda_slice_kernels_match_plain(cuda, dtype, BH, N, D, G):
+    """Both kernels against their plain versions, ragged N (no size here
+    is a multiple of the tile). max |diff| / max |plain| ≤ 1e-5 in
+    float32 (sums over N in another order than the plain product),
+    ≤ 1e-12 in float64; two calls give the same bits."""
+    fx, xm, ws, bs, temp, tok = _slice_inputs(BH, N, D, G, dtype, cuda)
+    n0, m0 = slice_pool.launches, slice_deslice.launches
+    num, den = slice_pool(fx, xm, ws, bs, temp)
+    out = slice_deslice(xm, tok, ws, bs, temp)
+    assert (slice_pool.launches, slice_deslice.launches) == (n0 + 1, m0 + 1)
+    num_p, den_p = slice_pool_plain(fx, xm, ws, bs, temp)
+    out_p = slice_deslice_plain(xm, tok, ws, bs, temp)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for a, b in ((num, num_p), (den, den_p), (out, out_p)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+    num2, den2 = slice_pool(fx, xm, ws, bs, temp)
+    assert torch.equal(num, num2) and torch.equal(den, den2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_slice_attention_matches_plain(cuda, dtype):
+    g = torch.Generator().manual_seed(7)
+    B, H, N, D, G = 2, 3, 517, 16, 32
+    fx, xm = (torch.randn(B, H, N, D, generator=g, dtype=dtype)
+              for _ in range(2))
+    ws = 0.3 * torch.randn(D, G, generator=g, dtype=dtype)
+    bs = 0.1 * torch.randn(G, generator=g, dtype=dtype)
+    temp = 0.4 + 0.2 * torch.rand(1, H, 1, 1, generator=g, dtype=dtype)
+    wq, wk, wv = (0.3 * torch.randn(D, D, generator=g, dtype=dtype)
+                  for _ in range(3))
+    args = [t.to(cuda) for t in (fx, xm, ws, bs, temp, wq, wk, wv)]
+    out = slice_attention_fused(*args)
+    ref = slice_attention_plain(*args)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_slice_kernels_raise_on_bad_input(cuda):
+    fx, xm, ws, bs, temp, tok = _slice_inputs(2, 100, 8, 16, F32, cuda)
+    with pytest.raises(TypeError):
+        slice_pool(fx.half(), xm.half(), ws.half(), bs.half(), temp.half())
+    with pytest.raises(TypeError):
+        slice_deslice(xm, tok, ws.double(), bs, temp)
+    big = _slice_inputs(1, 10, 65, 4, F32, cuda)
+    with pytest.raises(ValueError, match="D, G"):
+        slice_pool(*big[:5])
+    with pytest.raises(ValueError):
+        slice_pool(fx, xm.transpose(1, 2).contiguous().transpose(1, 2), ws,
+                   bs, temp)
+    with pytest.raises(ValueError):
+        slice_deslice(xm, tok[:, :8].contiguous(), ws, bs, temp)
+
+
+@pytest.mark.cuda
+def test_cuda_transolver_goes_through_the_kernels(cuda, monkeypatch):
+    """A small TransolverStructured2D on the card: one launch of each
+    kernel per block, and the kernel path's u, v within 1e-4 (relative to
+    max |plain|) of the same model with the einsum formulation."""
+    from pbml_mantle_convection_tpu_torch.models import transolver
+    m = transolver.TransolverStructured2D(H=16, W=24, n_layers=3,
+                                          n_hidden=32, n_head=2,
+                                          slice_num=8, device=cuda)
+    x = torch.randn(1, 16 * 24, 7, generator=torch.Generator().manual_seed(8))
+    x = x.to(cuda)
+    n0, m0 = slice_pool.launches, slice_deslice.launches
+    with torch.no_grad():
+        u, v, _ = m(x)
+        assert (slice_pool.launches - n0, slice_deslice.launches - m0) == (3, 3)
+        monkeypatch.setattr(transolver, "slice_attention_fused",
+                            slice_attention_plain)
+        up, vp, _ = m(x)
+    for a, b in ((u, up), (v, vp)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

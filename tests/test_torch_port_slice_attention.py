@@ -1,0 +1,106 @@
+"""The port's slice attention against the JAX package on the CPU.
+
+- ``slice_attention_plain`` and ``slice_attention_fused`` (on the CPU: the
+  two kernel wrappers' plain versions) against the JAX Pallas kernel in
+  interpret mode, at the JAX test's cases, float32: rtol 2e-5, atol 2e-6
+  (the tolerance of tests/test_slice_attention.py);
+- the same against the JAX model's einsum formulation
+  (``models/transolver.py::_slice_attention``) in float64: ≤ 1e-12;
+- the plain versions of the two kernels against direct einsums, float64.
+The CUDA kernels are held against these plain versions on the card by
+tests/test_torch_port_cuda.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from pbml_mantle_convection_tpu.models.transolver import (  # noqa: E402
+    _slice_attention as j_slice_attention)
+from pbml_mantle_convection_tpu.ops.slice_attention import (  # noqa: E402
+    slice_attention_fused as j_slice_attention_fused)
+
+from pbml_mantle_convection_tpu_torch.ops.slice_attention import (  # noqa: E402
+    slice_attention_fused, slice_attention_plain, slice_deslice,
+    slice_deslice_plain, slice_pool, slice_pool_plain, token_attention)
+
+PORT = {"plain": slice_attention_plain, "fused": slice_attention_fused}
+
+
+def _inputs(B, H, N, D, G, seed=0):
+    """The JAX test's inputs (tests/test_slice_attention.py:31-40)."""
+    rng = np.random.default_rng(seed)
+    fx = rng.normal(size=(B, H, N, D))
+    xm = rng.normal(size=(B, H, N, D))
+    ws = rng.normal(size=(D, G)) * 0.3
+    bs = rng.normal(size=(G,)) * 0.1
+    temp = 0.4 + 0.2 * rng.random((1, H, 1, 1))
+    wq, wk, wv = (rng.normal(size=(D, D)) * 0.3 for _ in range(3))
+    return fx, xm, ws, bs, temp, wq, wk, wv
+
+
+@pytest.mark.parametrize("port", sorted(PORT))
+@pytest.mark.parametrize("N,block_n", [(256, 64), (200, 64), (64, 64)])
+def test_port_matches_pallas_interpret_f32(port, N, block_n):
+    args = [a.astype(np.float32) for a in _inputs(2, 3, N, 8, 16)]
+    ref = j_slice_attention_fused(*map(jnp.asarray, args), block_n=block_n)
+    out = PORT[port](*map(torch.as_tensor, args))
+    assert out.dtype == torch.float32 and out.shape == (2, 3, N, 8)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("port", sorted(PORT))
+@pytest.mark.parametrize("shape", [(2, 3, 200, 8, 16), (1, 2, 97, 16, 32),
+                                   (1, 1, 50, 4, 4)])
+def test_port_matches_einsum_model_f64(port, shape):
+    fx, xm, ws, bs, temp, wq, wk, wv = _inputs(*shape, seed=1)
+    D = shape[3]
+    ref = j_slice_attention(
+        jnp.asarray(fx), jnp.asarray(xm), lambda x: x @ ws + bs,
+        jnp.asarray(temp), lambda t: t @ wq, lambda t: t @ wk,
+        lambda t: t @ wv, D ** -0.5)
+    out = PORT[port](*map(torch.as_tensor, (fx, xm, ws, bs, temp, wq, wk,
+                                            wv)))
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_kernel_plain_versions_f64():
+    """num, den and the broadcast of the two kernels' plain versions (what
+    the CPU wrappers run) against einsums written out here."""
+    fx, xm, ws, bs, temp, *_ = _inputs(2, 3, 77, 8, 16, seed=2)
+    BH = 6
+    fx, xm = fx.reshape(BH, 77, 8), xm.reshape(BH, 77, 8)
+    t = np.broadcast_to(temp.reshape(1, 3), (2, 3)).reshape(BH)
+    logits = (xm @ ws + bs) / t[:, None, None]
+    w = np.exp(logits - logits.max(-1, keepdims=True))
+    w /= w.sum(-1, keepdims=True)
+    tok = np.random.default_rng(3).normal(size=(BH, 16, 8))
+    T = [torch.as_tensor(a) for a in (fx, xm, ws, bs, t, tok)]
+    for pool in (slice_pool, slice_pool_plain):
+        num, den = pool(*T[:5])
+        np.testing.assert_allclose(num.numpy(),
+                                   np.einsum("bng,bnd->bgd", w, fx),
+                                   rtol=1e-12, atol=1e-13)
+        np.testing.assert_allclose(den.numpy(), w.sum(1), rtol=1e-12)
+    for deslice in (slice_deslice, slice_deslice_plain):
+        out = deslice(T[1], T[5], *T[2:5])
+        np.testing.assert_allclose(out.numpy(), w @ tok, rtol=1e-12,
+                                   atol=1e-13)
+
+
+def test_token_attention_is_softmax_attention():
+    rng = np.random.default_rng(4)
+    tok = rng.normal(size=(3, 5, 4))
+    wq, wk, wv = (rng.normal(size=(4, 4)) for _ in range(3))
+    q, k, v = tok @ wq, tok @ wk, tok @ wv
+    d = q @ k.transpose(0, 2, 1) / 2.0
+    a = np.exp(d - d.max(-1, keepdims=True))
+    a /= a.sum(-1, keepdims=True)
+    out = token_attention(*map(torch.as_tensor, (tok, wq, wk, wv)))
+    np.testing.assert_allclose(out.numpy(), a @ v, rtol=1e-12, atol=1e-13)
