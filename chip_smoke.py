@@ -6,8 +6,9 @@ Run from the repository root, with no arguments::
     python3 chip_smoke.py
 
 1. prints the card's name and power limit, builds the CUDA kernels from
-   ``pbml_mantle_convection_tpu_torch/csrc`` (nvcc, sm_90a) and prints the
-   build time;
+   ``pbml_mantle_convection_tpu_torch/csrc`` (nvcc, sm_90a), prints the
+   build time, and checks with ``cuobjdump --dump-sass`` that the layer
+   kernels of ``layer_stack`` and ``trunk`` hold TF32 tensor-core MMAs;
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the flagship's 128×506 rollout gives it (TF32 off), and times
    both;
@@ -53,9 +54,11 @@ import time
 import numpy as np
 
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense TF32 FLOP/s of the tensor cores (3xTF32
+# spends three TF32 products on each float32-accurate one: 495/3)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_3XTF32 = 495e12 / 3
 REPLACES = {
     "layer_stack": "pbml_mantle_convection_tpu/ops/branch_kernel.py:609",
     "trunk": "pbml_mantle_convection_tpu/ops/merge_kernel.py:76",
@@ -140,27 +143,66 @@ def queued_ms(fn, n: int = 200) -> float:
     return a.elapsed_time(b) / n
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    tb, to = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+def bound_ms(n_bytes: float, flops: float, tensor_cores: bool = False
+             ) -> tuple[float, str]:
+    """The least time for the work: bytes at the HBM rate, or the flops
+    at the float32 SIMT peak (or, ``tensor_cores``, at the 3xTF32 rate of
+    the tensor cores), whichever is longer."""
+    peak = PEAK_3XTF32 if tensor_cores else PEAK_F32
+    tb, to = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def stack_work(sw, H, W, pool):
-    """(bytes, flops) of one layer_stack call: inputs read once, outputs
-    written once; conv FMAs as 2 flops, + bias, GroupNorm (~4/elem) and
-    GELU (~6/elem), 4 flops per pooled output."""
+def stack_work(sw, H, W, n_pyr=0):
+    """(bytes, flops) of one layer_stack over an H × W field: inputs read
+    once, outputs written once; conv FMAs as 2 flops, + bias, GroupNorm
+    (~4/elem) and GELU (~6/elem), 4 flops per pooled output (the n_pyr
+    successive pools of the output)."""
     hw = H * W
     flops = 0.0
     c_in = sw.c_in
+    n_w = 0
     for _ in range(sw.R):
         flops += (2 * c_in * 25 + 1 + 4 * sw.use_gn + 6 * sw.use_act) \
             * sw.c_o * hw
+        n_w += 9 * c_in * 25 * sw.c_o
         c_in = sw.c_o
-    n_pool = sw.c_in * (H // 2) * (W // 2) if pool else 0
+    n_pool = sum(sw.c_o * (H >> l) * (W >> l) for l in range(1, n_pyr + 1))
     flops += 4 * n_pool
-    n_bytes = 4 * (sw.c_in * hw + sw.packed.numel() + 3 * sw.bias.numel()
+    n_bytes = 4 * (sw.c_in * hw + n_w + 3 * sw.bias.numel()
                    + sw.c_o * hw + n_pool)
     return n_bytes, flops
+
+
+def check_sass(so) -> None:
+    """The layer kernels (``blc_fused_kernel``, in layer_stack.cu's and in
+    trunk.cu's objects) run their conv on the tensor cores: their SASS in
+    the built library holds TF32 ``HMMA`` (or ``HGMMA``) instructions.
+    Prints the count per kernel instance (``cuobjdump --dump-sass``)."""
+    import shutil
+    from pathlib import Path
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise AssertionError("cuobjdump not found: cannot check the SASS")
+    sass = subprocess.run([tool, "--dump-sass", str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "blc_fused_kernel" in m.group(1) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and re.search(r"\bH(G)?MMA\.\S*TF32", line):
+            counts[fn] += 1
+    for name, n in sorted(counts.items()):
+        src = "trunk.cu" if "trunk_cu" in name else "layer_stack.cu"
+        t = re.search(r"blc_fused_kernelILi(\d+)ELb(\d)", name)
+        inst = f"<{t.group(1)}, {t.group(2)}>" if t else name
+        print(f"sass: {src} blc_fused_kernel{inst}: {n} TF32 tensor-core "
+              f"MMA instructions")
+    if len(counts) < 2 or not all(counts.values()):
+        raise AssertionError(f"layer kernels without TF32 MMA: {counts}")
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -197,7 +239,7 @@ def check_kernels(H, W):
     import torch
     import torch.nn.functional as F
     from pbml_mantle_convection_tpu_torch.ops.branch_kernel import (
-        layer_stack, layer_stack_plain)
+        layer_stack, layer_stack_plain, layer_stacks, layer_stacks_plain)
     from pbml_mantle_convection_tpu_torch.ops.epilogue_kernel import (
         curl_advect_epilogue, curl_advect_epilogue_plain)
     from pbml_mantle_convection_tpu_torch.ops.merge_kernel import (
@@ -210,54 +252,85 @@ def check_kernels(H, W):
     x = fast.input_from_T(T)
 
     # the main path's stage inputs, from the plain chain
-    stacks = [("stem", x, fast.stem, False)]
-    b, _ = layer_stack_plain(x, fast.stem)
-    outs = []
-    for l, sw in enumerate(fast.branches):
-        pool = l < len(fast.branches) - 1
-        stacks.append((f"level{l}", b, sw, pool))
-        y, b = layer_stack_plain(b, sw, pool)
-        outs.append(y)
+    n_pyr = len(fast.branches) - 1
+    b, pyr = layer_stack_plain(x, fast.stem, pyramid=n_pyr)
+    xs = [b, *pyr]
+    outs = layer_stacks_plain(xs, fast.branches)
     y1 = trunk_plain(outs[0], outs[1:], x, fast.trunk)
     y2, _ = layer_stack_plain(y1, fast.merge2)
-    stacks += [("merge2", y1, fast.merge2, False),
-               ("merge3", y2, fast.merge3, False)]
     psi, _ = layer_stack_plain(y2, fast.merge3)
 
+    def work(sws, inputs, n_pyr=0):
+        w = [stack_work(sw, i.shape[1], i.shape[2], n_pyr=n_pyr)
+             for sw, i in zip(sws, inputs)]
+        return sum(a for a, _ in w), sum(f for _, f in w)
+
+    def stem(fn):
+        y, pools = fn(x, fast.stem, pyramid=n_pyr)
+        return [y, *pools]
+
+    # the main path's four layer_stack calls: (name, kernel call, plain
+    # call, each returning a list of fields, (bytes, flops))
+    calls = [
+        ("stem", lambda: stem(layer_stack), lambda: stem(layer_stack_plain),
+         work([fast.stem], [x], n_pyr)),
+        ("branches", lambda: layer_stacks(xs, fast.branches),
+         lambda: layer_stacks_plain(xs, fast.branches),
+         work(fast.branches, xs)),
+        ("merge2", lambda: [layer_stack(y1, fast.merge2)[0]],
+         lambda: [layer_stack_plain(y1, fast.merge2)[0]],
+         work([fast.merge2], [y1])),
+        ("merge3", lambda: [layer_stack(y2, fast.merge3)[0]],
+         lambda: [layer_stack_plain(y2, fast.merge3)[0]],
+         work([fast.merge3], [y2])),
+    ]
     rec = {}
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, rel=0.0,
-               bytes=0.0, flops=0.0)
-    for name, inp, sw, pool in stacks:
-        yk, pk = layer_stack(inp, sw, pool)
-        yp, pp = layer_stack_plain(inp, sw, pool)
-        err, rel = rel_err(yk, yp)
-        if pool:
-            e2, r2 = rel_err(pk, pp)
-            err, rel = max(err, e2), max(rel, r2)
-        ms = cuda_ms(lambda: layer_stack(inp, sw, pool))
-        pms = cuda_ms(lambda: layer_stack_plain(inp, sw, pool), n=5)
-        nb, fl = stack_work(sw, inp.shape[1], inp.shape[2], pool)
-        bms, _ = bound_ms(nb, fl)
-        print(f"layer_stack {name:7s} c_in={sw.c_in:2d} c_o={sw.c_o:2d} "
-              f"R={sw.R} {inp.shape[1]}x{inp.shape[2]} pool={pool:d}: "
-              f"max_abs_err={err:.3e} rel={rel:.3e} (tol {TOL['layer_stack']})"
-              f" ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.4f}")
-        if not rel <= TOL["layer_stack"]:
-            raise AssertionError(f"layer_stack {name} disagrees: {rel}")
+    tot = dict(ms=0.0, queued_ms=0.0, plain_ms=0.0, err=0.0, bytes=0.0,
+               flops=0.0)
+    for name, kern, plain, (nb, fl) in calls:
+        got, ref = kern(), plain()
+        errs = [rel_err(a, b) for a, b in zip(got, ref)]
+        err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, kern()))
+        ms = cuda_ms(kern)
+        qms = queued_ms(kern)
+        pms = cuda_ms(plain, n=5)
+        bms, by = bound_ms(nb, fl, tensor_cores=True)
+        sms, sby = bound_ms(nb, fl)
+        print(f"layer_stack {name:8s} fields {[tuple(t.shape) for t in ref]}"
+              f": max_abs_err={err:.3e} rel={rel:.3e} (tol "
+              f"{TOL['layer_stack']}) repeatable={same} ms={ms:.4f} "
+              f"(device only, launches queued: {qms:.4f}) plain_ms="
+              f"{pms:.4f} bound_ms={bms:.4f} ({by}, 3xTF32 tensor cores) "
+              f"simt_bound_ms={sms:.4f} ({sby}, float32 SIMT)")
+        if not (rel <= TOL["layer_stack"] and same):
+            raise AssertionError(f"layer_stack {name} disagrees: {rel}, "
+                                 f"repeatable {same}")
         tot["ms"] += ms
+        tot["queued_ms"] += qms
         tot["plain_ms"] += pms
         tot["bytes"] += nb
         tot["flops"] += fl
         tot["err"] = max(tot["err"], err)
-    bms, by = bound_ms(tot["bytes"], tot["flops"])
+    bms, by = bound_ms(tot["bytes"], tot["flops"], tensor_cores=True)
+    sms, _ = bound_ms(tot["bytes"], tot["flops"])
+    print(f"layer_stack summed over the {len(calls)} calls of a step: ms="
+          f"{tot['ms']:.4f} (device only {tot['queued_ms']:.4f}) bound_ms="
+          f"{bms:.4f} ({by}, 3xTF32) simt_bound_ms={sms:.4f}")
     rec["layer_stack"] = dict(max_abs_err=tot["err"], ms=tot["ms"],
                               plain_ms=tot["plain_ms"], bound_ms=bms,
-                              bound_by=by, library_ms=None)
+                              bound_by=by, library_ms=None,
+                              queued_ms=tot["queued_ms"],
+                              simt_bound_ms=sms)
 
     # trunk
-    yk = trunk(outs[0], outs[1:], x, fast.trunk)
+    def trunk_k():
+        return trunk(outs[0], outs[1:], x, fast.trunk)
+    yk = trunk_k()
     err, rel = rel_err(yk, y1)
-    ms = cuda_ms(lambda: trunk(outs[0], outs[1:], x, fast.trunk))
+    same = bool(torch.equal(yk, trunk_k()))
+    ms = cuda_ms(trunk_k)
+    qms = queued_ms(trunk_k)
     pms = cuda_ms(lambda: trunk_plain(outs[0], outs[1:], x, fast.trunk), n=5)
 
     def interp():
@@ -270,19 +343,24 @@ def check_kernels(H, W):
                 for a, c in zip(interp(), outs[1:]))
     c_h = fast.trunk.merge.c_o
     n_coarse = sum(c.numel() for c in outs[1:])
-    nb, fl = stack_work(fast.trunk.merge, H, W, False)
+    nb, fl = stack_work(fast.trunk.merge, H, W)
     nb += 4 * n_coarse - 4 * c_h * len(outs[1:]) * H * W
     fl += 40 * c_h * len(outs[1:]) * H * W
-    bms, by = bound_ms(nb, fl)
+    bms, by = bound_ms(nb, fl, tensor_cores=True)
+    sms, sby = bound_ms(nb, fl)
     print(f"trunk c_in={fast.trunk.merge.c_in} {H}x{W}: max_abs_err="
-          f"{err:.3e} rel={rel:.3e} (tol {TOL['trunk']}) ms={ms:.4f} "
-          f"plain_ms={pms:.4f} bound_ms={bms:.4f} library_ms(4x "
-          f"F.interpolate bicubic)={lib_ms:.4f} (F.interpolate vs resize "
-          f"matrices rel {e_int:.2e})")
-    if not rel <= TOL["trunk"]:
-        raise AssertionError(f"trunk disagrees: {rel}")
+          f"{err:.3e} rel={rel:.3e} (tol {TOL['trunk']}) repeatable={same} "
+          f"ms={ms:.4f} (device only, launches queued: {qms:.4f}) "
+          f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}, 3xTF32 tensor "
+          f"cores) simt_bound_ms={sms:.4f} ({sby}, float32 SIMT) "
+          f"library_ms={lib_ms:.4f} (4x F.interpolate bicubic, the "
+          f"upsampling only: not the same function; F.interpolate vs "
+          f"resize matrices rel {e_int:.2e})")
+    if not (rel <= TOL["trunk"] and same):
+        raise AssertionError(f"trunk disagrees: {rel}, repeatable {same}")
     rec["trunk"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                        bound_by=by, library_ms=lib_ms)
+                        bound_by=by, library_ms=lib_ms, queued_ms=qms,
+                        simt_bound_ms=sms)
 
     # epilogue
     consts, s, src = eng._epi, eng.stepper.scaler, eng.stepper._raq
@@ -383,7 +461,7 @@ def run_main_path(counters):
             best = max(best, n / (time.perf_counter() - t0))
         got = {k: fn.launches for k, fn in counters.items()}
         steps = n * reps
-        want = {"layer_stack": 8 * steps, "trunk": steps,
+        want = {"layer_stack": 4 * steps, "trunk": steps,
                 "curl_advect_epilogue": steps,
                 "advect_diffuse_step_fused": 0}
         if got != want:
@@ -392,7 +470,7 @@ def run_main_path(counters):
             raise AssertionError(f"{H}x{W}: T is not finite")
         mean_T = trace.mean_T.cpu().numpy()
         print(f"main path {H}x{W}: {best:.1f} steps/s (best of {reps} x "
-              f"{n} steps), launches {got} = 8+1+1+0 per step, "
+              f"{n} steps), launches {got} = 4+1+1+0 per step, "
               f"mean T {mean_T[-1]:.6f}")
         for k in launch:
             launch[k] += got[k]
@@ -533,7 +611,7 @@ def run_modes(counters, H=128, W=506):
         ms = (time.perf_counter() - t0) / n * 1e3
         got = {k: fn.launches for k, fn in counters.items()}
         net = eng.mode != "GAIA"
-        want = {"layer_stack": 8 * n * net, "trunk": n * net,
+        want = {"layer_stack": 4 * n * net, "trunk": n * net,
                 "curl_advect_epilogue": 0, "advect_diffuse_step_fused": n}
         if got != want:
             raise AssertionError(f"{name}: launches {got}, want {want}")
@@ -802,12 +880,13 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}")
-    _, secs, report = _cuda.build()
+    so, secs, report = _cuda.build()
     _cuda.library()
     print(f"kernels built in {secs:.1f} s")
     for line in report.splitlines():
         if re.search(r"Function properties|registers|spill", line):
             print("  ptxas:", line.strip())
+    check_sass(so)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,11 +1,14 @@
-"""Fused executor of a NewFluidNet: the network as 8 + 1 kernel calls.
+"""Fused executor of a NewFluidNet: the network as 4 + 1 kernel calls.
 
 Counterpart of the JAX package's ``models/fast_path.py::FastNewFluidNet``
-with ``megakernel=True``: stem → one ``layer_stack`` per pyramid level
-(each also emitting the 2×2 pool of its input, the next level's input) →
-``trunk`` (bicubic upsampling + merge-1 + GN0 + GELU) → merge 2 (GELU, no
-GN) → merge 3 (plain) → the raw stream function ψ. The engine hands ψ to
-the fused curl + advection epilogue (``ops/epilogue_kernel.py``).
+with ``megakernel=True``: stem (``layer_stack``, also emitting the
+successive 2×2 pools of its output: the pyramid levels' inputs) → the
+branch stacks of every level in one ``layer_stacks`` call → ``trunk``
+(bicubic upsampling + merge-1 + GN0 + GELU) → merge 2 (GELU, no GN) →
+merge 3 (plain) → the raw stream function ψ. The engine hands ψ to the
+fused curl + advection epilogue (``ops/epilogue_kernel.py``). On the card
+that is 13 kernel launches per forward: stem 2, branches 6 + 1, trunk 2,
+merges 1 + 1.
 
 Fields are dense planar (C, H, W) tensors of one simulation (B = 1); the
 TPU block layouts of the JAX executor do not exist here. On CUDA tensors
@@ -24,7 +27,8 @@ from typing import Optional
 import torch
 
 from ..constants import COORD_SCALE, visc_feature
-from ..ops.branch_kernel import StackWeights, layer_stack, pack_stack
+from ..ops.branch_kernel import (StackWeights, layer_stack, layer_stacks,
+                                 pack_stack)
 from ..ops.merge_kernel import trunk, trunk_weights
 from ..physics.viscosity import fk_viscosity_clipped
 from .fluidnet import NewFluidNet
@@ -94,12 +98,9 @@ class FastNewFluidNet:
 
     def psi(self, x: torch.Tensor) -> torch.Tensor:
         """(c_i, H, W) planar input → (1, H, W) raw stream function."""
-        b_in, _ = layer_stack(x, self.stem)
-        outs = []
-        last = len(self.branches) - 1
-        for l, sw in enumerate(self.branches):
-            y, b_in = layer_stack(b_in, sw, pool=l < last)
-            outs.append(y)
+        b_in, pyr = layer_stack(x, self.stem,
+                                pyramid=len(self.branches) - 1)
+        outs = layer_stacks([b_in, *(pyr or [])], self.branches)
         y = trunk(outs[0], outs[1:], x, self.trunk)
         y, _ = layer_stack(y, self.merge2)
         y, _ = layer_stack(y, self.merge3)

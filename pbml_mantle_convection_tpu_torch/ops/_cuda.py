@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("layer_stack.cu", "trunk.cu", "epilogue.cu", "advect.cu",
            "slice_attention.cu")
-HEADERS = ("pmc_common.cuh",)
+HEADERS = ("pmc_common.cuh", "blc_layer.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,9 +37,9 @@ _F = ctypes.c_float
 _D = ctypes.c_double
 # C entry points: name → argument types (every one returns a cudaError_t)
 _SIGNATURES = {
-    "pmc_layer_stack": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "pmc_trunk": [_P, _P, _P, _I, _P, _I, _P, _P, _P,
+    "pmc_layer_stacks": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pmc_trunk": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _P],
     "pmc_curl_advect_epilogue": [_P, _P, _P, _P, _P, _P, _P,
@@ -131,16 +131,28 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.pmc_error_string.argtypes = [ctypes.c_int]
     lib.pmc_error_string.restype = ctypes.c_char_p
-    lib.pmc_gn_stats_blocks.argtypes = []
-    lib.pmc_gn_stats_blocks.restype = ctypes.c_int
+    lib.pmc_work_items.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.pmc_work_items.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def gn_stats_len(groups: int) -> int:
-    """Doubles of GroupNorm partial-sum scratch a layer with ``groups``
-    groups needs."""
-    return max(groups, 1) * library().pmc_gn_stats_blocks() * 2
+def work_items(H: int, W: int) -> int:
+    """Blocks of one layer launch over an H × W field (the rows of its
+    per-block GroupNorm scratch)."""
+    return library().pmc_work_items(H, W)
+
+
+# fields one layer launch takes (csrc/pmc_common.cuh::kMaxLevels)
+MAX_LEVELS = 5
+
+
+@functools.lru_cache(maxsize=None)
+def counters(device: torch.device) -> torch.Tensor:
+    """The layer kernels' ticket counters on ``device``: zeroed once, and
+    zero again after every launch (the last block of a field resets its
+    counter). Launches that use them run on one stream at a time."""
+    return torch.zeros(MAX_LEVELS, dtype=torch.int32, device=device)
 
 
 def raise_on_error(err: int, name: str) -> None:

@@ -1,25 +1,33 @@
-"""``layer_stack``: a stack of learned-boundary FluidLayers as one call.
+"""``layer_stack``: stacks of learned-boundary FluidLayers as one call.
 
 Replaces the TPU kernel ``pbml_mantle_convection_tpu/ops/branch_kernel.py::
-_stack_kernel`` (``LayerStack``). On a CUDA tensor it launches the
-hand-written kernels of ``csrc/layer_stack.cu``; on a CPU tensor it runs
-:func:`layer_stack_plain`, the same function in plain PyTorch (9 VALID
-``F.conv2d`` + ``torch.cat`` in the stitch order of the reference, then
-``F.group_norm`` and exact ``F.gelu``).
+_stack_kernel`` (``LayerStack``). On a CUDA tensor :func:`layer_stack` and
+:func:`layer_stacks` launch the hand-written kernels of
+``csrc/layer_stack.cu``; on a CPU tensor they run :func:`layer_stack_plain`,
+the same function in plain PyTorch (9 VALID ``F.conv2d`` + ``torch.cat``
+in the stitch order of the reference, then ``F.group_norm`` and exact
+``F.gelu``).
 
-What bounds it on the card, and how the kernel is laid out against that,
-is written at the top of ``csrc/layer_stack.cu``: operations (float32 FMAs
-of the 5×5 convs); a shared-memory tiled interior conv with all output
-channels in registers, a small direct kernel for the boundary ring, and
-GroupNorm statistics as double-precision per-block partial sums.
+What was built for the card (the note at the top of
+``csrc/layer_stack.cu`` has the detail): one launch per layer, in which the
+5×5 conv of the interior and of the boundary ring runs on the tensor cores
+as an implicit GEMM in 3xTF32 (float32 accuracy), the previous layer's
+GroupNorm and GELU are applied while the input is staged, and the last
+block of each field turns per-block double sums into the layer's
+GroupNorm statistics; one more pass after the last GroupNorm layer. The
+five pyramid levels' branch stacks share each launch
+(:func:`layer_stacks`), and the stem's last pass also writes the pyramid
+inputs (``pyramid``).
 
 Fields are planar (C, H, W) tensors of one simulation (B = 1).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Optional, Sequence
+import math
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -28,18 +36,49 @@ from ..models.layers import blc_conv2d
 from . import _cuda
 from .resize import avg_pool_nchw
 
+# successive 2×2 pools the stem's last pass can write
+MAX_PYRAMID = 4
+
+
+def _tf32(w: torch.Tensor) -> torch.Tensor:
+    """float32 → the nearest TF32 value (10 mantissa bits, ties away from
+    zero: PTX ``cvt.rna.tf32.f32``), as float32."""
+    b = w.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def weight_fragments(w9: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One layer's 9 OIHW kernels (c_o, c_in, 5, 5) as the kernel's mma B
+    fragments: (class, 8-channel input chunk q, tap, 8-channel output tile
+    j, lane, 4), one class's chunk contiguous as the kernel copies it to
+    shared memory. Lane 4·g + t holds, for co = 8j + g, the weights of
+    ci = 8q + t and 8q + t + 4, each split into TF32 hi and lo parts:
+    [hi(t), hi(t+4), lo(t), lo(t+4)]. Channels past c_in or c_o are 0."""
+    c_o, c_in = w9[0].shape[:2]
+    nq, nj = math.ceil(c_in / 8), math.ceil(c_o / 8)
+    w = torch.zeros(9, 25, nq * 8, nj * 8, device=w9[0].device)
+    w[:, :, :c_in, :c_o] = (torch.stack([k.detach().float() for k in w9])
+                            .reshape(9, c_o, c_in, 25).permute(0, 3, 2, 1))
+    # (class, tap, q, k, j, g) → (class, q, tap, j, g, k)
+    b = w.reshape(9, 25, nq, 8, nj, 8).permute(0, 2, 1, 4, 5, 3)
+    b0, b1 = b[..., :4], b[..., 4:]
+    h0, h1 = _tf32(b0), _tf32(b1)
+    frag = torch.stack([h0, h1, _tf32(b0 - h0), _tf32(b1 - h1)], dim=-1)
+    return frag.reshape(-1).contiguous()
+
 
 @dataclasses.dataclass(frozen=True)
 class StackWeights:
     """Weights of R learned-boundary layers with c_o outputs each.
 
     ``kernels[i]`` holds layer i's 9 OIHW kernels in ``BLC_CLASSES``
-    order (the plain version reads them); ``packed`` is the same weights
-    as back-to-back (9, c_in_i, 25, c_o) blocks (the kernel reads them).
+    order (the plain version reads them); ``frag`` is the same weights as
+    the layers' :func:`weight_fragments` back to back (the kernel reads
+    them).
     """
 
     kernels: tuple
-    packed: torch.Tensor
+    frag: torch.Tensor
     bias: torch.Tensor        # (R, c_o)
     gn_scale: torch.Tensor    # (R, c_o)
     gn_bias: torch.Tensor     # (R, c_o)
@@ -66,22 +105,20 @@ def pack_stack(layers: Sequence, groups: int, use_gn: bool = True,
         for w9 in kernels[1:]:
             if w9[0].shape[1] != c_o:
                 raise ValueError("layers after the first must map c_o → c_o")
-        packed = torch.cat([
-            torch.stack(w9).permute(0, 2, 3, 4, 1).reshape(-1)
-            for w9 in kernels]).contiguous()
+        frag = torch.cat([weight_fragments(w9) for w9 in kernels])
         ones = torch.ones_like(layers[0][1])
         bias = torch.stack([b.detach() for _, b, _, _ in layers])
         gs = torch.stack([(s if s is not None else ones).detach()
                           for _, _, s, _ in layers])
         gb = torch.stack([(b if b is not None else 0 * ones).detach()
                           for _, _, _, b in layers])
-    return StackWeights(kernels, packed, bias.contiguous(), gs.contiguous(),
+    return StackWeights(kernels, frag, bias.contiguous(), gs.contiguous(),
                         gb.contiguous(), int(c_in), int(c_o), groups,
                         use_gn, use_act)
 
 
-def layer_stack_plain(x: torch.Tensor, sw: StackWeights, pool: bool = False
-                      ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+def layer_stack_plain(x: torch.Tensor, sw: StackWeights, pool: bool = False,
+                      pyramid: int = 0):
     """Plain PyTorch version of :func:`layer_stack`."""
     pooled = avg_pool_nchw(x, 2) if pool else None
     y = x[None]
@@ -92,38 +129,101 @@ def layer_stack_plain(x: torch.Tensor, sw: StackWeights, pool: bool = False
                              eps=1e-5)
         if sw.use_act:
             y = F.gelu(y)
-    return y[0], pooled
+    y = y[0]
+    if pyramid:
+        pooled = [avg_pool_nchw(y, 2)]
+        for _ in range(pyramid - 1):
+            pooled.append(avg_pool_nchw(pooled[-1], 2))
+    return y, pooled
 
 
-def layer_stack(x: torch.Tensor, sw: StackWeights, pool: bool = False
-                ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """R learned-boundary layers on ``x`` (c_in, H, W) → (y (c_o, H, W),
-    the VALID 2×2 average pool of ``x`` when ``pool`` else None)."""
-    if x.device.type == "cpu":
-        return layer_stack_plain(x, sw, pool)
-    C, H, W = x.shape
-    _cuda.check_cuda_f32("layer_stack x", x, (sw.c_in, H, W))
-    for name in ("packed", "bias", "gn_scale", "gn_bias"):
-        t = getattr(sw, name)
-        _cuda.check_cuda_f32(f"layer_stack {name}", t)
-        if t.device != x.device:
-            raise ValueError(f"layer_stack {name} is on {t.device}, "
-                             f"x on {x.device}")
+def layer_stacks_plain(xs: Sequence[torch.Tensor],
+                       sws: Sequence[StackWeights]) -> list:
+    """Plain PyTorch version of :func:`layer_stacks`."""
+    return [layer_stack_plain(x, sw)[0] for x, sw in zip(xs, sws)]
+
+
+def _launch(xs, sws, pool: bool = False, pyramid: int = 0):
+    """One ``pmc_layer_stacks`` call over the fields ``xs``."""
+    sw = sws[0]
+    dev = xs[0].device
+    for s in sws[1:]:
+        if (s.R, s.c_in, s.c_o, s.groups, s.use_gn, s.use_act) != (
+                sw.R, sw.c_in, sw.c_o, sw.groups, sw.use_gn, sw.use_act):
+            raise ValueError("layer_stacks: the stacks differ in shape")
+    if not 1 <= len(xs) <= _cuda.MAX_LEVELS or len(xs) != len(sws):
+        raise ValueError(f"layer_stacks: 1..{_cuda.MAX_LEVELS} fields, one "
+                         f"stack each; got {len(xs)} and {len(sws)}")
+    for x, s in zip(xs, sws):
+        _cuda.check_cuda("layer_stack x", x, torch.float32)
+        if x.dim() != 3 or x.shape[0] != sw.c_in:
+            raise ValueError(f"layer_stack x: expected ({sw.c_in}, H, W), "
+                             f"got {tuple(x.shape)}")
+        for name in ("frag", "bias", "gn_scale", "gn_bias"):
+            t = getattr(s, name)
+            _cuda.check_cuda_f32(f"layer_stack {name}", t)
+            if t.device != dev or x.device != dev:
+                raise ValueError(f"layer_stack {name} is on {t.device}, "
+                                 f"x on {x.device}")
+    hw = [(x.shape[1], x.shape[2]) for x in xs]
+    if min(min(h, w) for h, w in hw) < 6:
+        raise ValueError(f"layer_stack: fields must be at least 6×6: {hw}")
+    H, W = hw[0]
+    if not 0 <= pyramid <= MAX_PYRAMID or min(H, W) >> pyramid < 1:
+        raise ValueError(f"layer_stack: pyramid={pyramid} at {H}×{W}")
     lib = _cuda.library()
-    y = torch.empty((sw.c_o, H, W), device=x.device)
-    scratch = torch.empty_like(y) if sw.R > 1 else None
-    stats = torch.empty((_cuda.gn_stats_len(sw.groups),),
-                        dtype=torch.float64, device=x.device)
-    pooled = (torch.empty((C, H // 2, W // 2), device=x.device)
+    ys = [torch.empty((sw.c_o, h, w), device=dev) for h, w in hw]
+    scratch = ([torch.empty_like(y) for y in ys] if sw.R > 1
+               else [None] * len(xs))
+    groups = sw.groups if sw.use_gn else 1
+    stats = torch.empty((len(xs) * sw.R * groups * 2,), device=dev)
+    stride = max(_cuda.work_items(h, w) for h, w in hw) * sw.c_o * 2
+    partial = torch.empty((len(xs) * stride,), dtype=torch.float64,
+                          device=dev)
+    pooled = (torch.empty((sw.c_in, H // 2, W // 2), device=dev)
               if pool else None)
-    err = lib.pmc_layer_stack(
-        x.data_ptr(), y.data_ptr(), _cuda.ptr(scratch), stats.data_ptr(),
-        sw.packed.data_ptr(), sw.bias.data_ptr(), sw.gn_scale.data_ptr(),
-        sw.gn_bias.data_ptr(), _cuda.ptr(pooled), sw.c_in, sw.c_o, H, W,
-        sw.R, sw.groups, int(sw.use_gn), int(sw.use_act), _cuda.stream(x))
+    pyr = [torch.empty((sw.c_o, H >> l, W >> l), device=dev)
+           for l in range(1, pyramid + 1)]
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * len(ts))(*[_cuda.ptr(t) for t in ts])
+
+    err = lib.pmc_layer_stacks(
+        len(xs), ptrs(xs), ptrs(ys), ptrs(scratch),
+        (ctypes.c_int * (2 * len(xs)))(*[v for p in hw for v in p]),
+        ptrs([s.frag for s in sws]), ptrs([s.bias for s in sws]),
+        ptrs([s.gn_scale for s in sws]), ptrs([s.gn_bias for s in sws]),
+        stats.data_ptr(), partial.data_ptr(), stride,
+        _cuda.counters(dev).data_ptr(), ptrs(pyr or [None]), pyramid,
+        _cuda.ptr(pooled), sw.c_in, sw.c_o, sw.R, groups, int(sw.use_gn),
+        int(sw.use_act), _cuda.stream(xs[0]))
     layer_stack.launches += 1
     _cuda.raise_on_error(err, "layer_stack")
-    return y, pooled
+    return ys, pooled, pyr
+
+
+def layer_stack(x: torch.Tensor, sw: StackWeights, pool: bool = False,
+                pyramid: int = 0):
+    """R learned-boundary layers on ``x`` (c_in, H, W) → (y (c_o, H, W),
+    extra): extra is the VALID 2×2 average pool of ``x`` when ``pool``,
+    the list of ``pyramid`` successive VALID 2×2 pools of ``y`` (odd sizes
+    floor) when ``pyramid`` > 0, else None."""
+    if pool and pyramid:
+        raise ValueError("layer_stack: pool and pyramid are exclusive")
+    if x.device.type == "cpu":
+        return layer_stack_plain(x, sw, pool, pyramid)
+    ys, pooled, pyr = _launch([x], [sw], pool, pyramid)
+    return ys[0], (pyr if pyramid else pooled)
+
+
+def layer_stacks(xs: Sequence[torch.Tensor],
+                 sws: Sequence[StackWeights]) -> list:
+    """Stacks of equal R, c_in, c_o and norm flags on up to five fields of
+    any sizes (the pyramid levels' branches) → their outputs; on the card
+    layer r of every field runs in one launch."""
+    if xs[0].device.type == "cpu":
+        return layer_stacks_plain(xs, sws)
+    return _launch(list(xs), list(sws))[0]
 
 
 layer_stack.launches = 0

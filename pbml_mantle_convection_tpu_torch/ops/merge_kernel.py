@@ -1,15 +1,19 @@
 """``trunk``: bicubic upsampling of the coarse branches + merge-1.
 
 Replaces the TPU kernel ``pbml_mantle_convection_tpu/ops/merge_kernel.py::
-_trunk_kernel`` (``TrunkStack``). It builds NewFluidNet's merge input —
+_trunk_kernel`` (``TrunkStack``). It takes NewFluidNet's merge input —
 branch 0, the coarse branches upsampled to H × W (Keys a = -0.75,
 half-pixel, clamped indices), the network input — and runs the merge-1
 learned-boundary conv, bias, GroupNorm and GELU. On a CUDA tensor it
 launches ``csrc/trunk.cu``; on a CPU tensor it runs :func:`trunk_plain`
 (the resize matrices, ``torch.cat`` and :func:`layer_stack_plain`).
 
-What bounds it on the card (operations: the 87→16 conv) and what the
-design does about it is written at the top of ``csrc/trunk.cu``.
+What was built for the card (the note at the top of ``csrc/trunk.cu``):
+the layer kernel of ``csrc/blc_layer.cuh`` — 3xTF32 tensor-core conv, ring
+and GroupNorm statistics in the same launch — with the 87-channel input
+assembled chunk by chunk in its staging step, the coarse branches
+upsampled there from the tap tables of :func:`trunk_weights`; no
+concatenated buffer is written. Two launches per call.
 """
 
 from __future__ import annotations
@@ -27,13 +31,15 @@ from .resize import _resize_matrix_np, resize_bicubic_nchw
 
 
 def _taps(in_size: int, out_size: int):
-    """The ≤4 non-zero entries of each row of the resize matrix, padded
-    with zero weights: (out_size, 4) int32 indices, (out_size, 4) weights."""
+    """The ≤4 non-zero entries of each row of the resize matrix, in
+    ascending index order, padded with zero weights at the first index:
+    (out_size, 4) int32 indices, (out_size, 4) weights."""
     M = _resize_matrix_np(in_size, out_size)
     idx = np.zeros((out_size, 4), np.int32)
     wts = np.zeros((out_size, 4), np.float64)
     for o in range(out_size):
         nz = np.nonzero(M[o])[0]
+        idx[o] = nz[0]
         idx[o, :len(nz)] = nz
         wts[o, :len(nz)] = M[o, nz]
     return idx, wts
@@ -55,7 +61,7 @@ class TrunkWeights:
 
 def trunk_weights(merge: StackWeights, coarse_hw: Sequence, H: int, W: int
                   ) -> TrunkWeights:
-    dev, dt = merge.packed.device, merge.packed.dtype
+    dev, dt = merge.bias.device, merge.bias.dtype
     ys = [_taps(h, H) for h, _ in coarse_hw]
     xs = [_taps(w, W) for _, w in coarse_hw]
 
@@ -90,26 +96,29 @@ def trunk(b0: torch.Tensor, coarse: Sequence[torch.Tensor], x: torch.Tensor,
         _cuda.check_cuda_f32("trunk coarse branch", c, (c_h, h, w))
     c_x = tw.merge.c_in - c_h * (len(coarse) + 1)
     _cuda.check_cuda_f32("trunk x", x, (c_x, H, W))
-    for t in (tw.merge.packed, tw.merge.bias, tw.merge.gn_scale,
-              tw.merge.gn_bias, tw.y_w, tw.x_w):
+    m, n = tw.merge, len(coarse)
+    if c_h % 8 or not (m.use_gn and m.use_act) or n > _cuda.MAX_LEVELS:
+        raise ValueError("trunk: the kernel takes c_h a multiple of 8, "
+                         f"GroupNorm + GELU, ≤ {_cuda.MAX_LEVELS} coarse "
+                         "branches")
+    for t in (m.frag, m.bias, m.gn_scale, m.gn_bias, tw.y_w, tw.x_w):
         _cuda.check_cuda_f32("trunk weights", t)
         if t.device != b0.device:
             raise ValueError("trunk: weights and fields on different devices")
     lib = _cuda.library()
-    n = len(coarse)
     ptrs = (ctypes.c_void_p * max(n, 1))(*[c.data_ptr() for c in coarse])
     hws = (ctypes.c_int * max(2 * n, 1))(*[v for hw in tw.coarse_hw
                                             for v in hw])
-    cat = torch.empty((tw.merge.c_in, H, W), device=b0.device)
     y = torch.empty((c_h, H, W), device=b0.device)
-    stats = torch.empty((_cuda.gn_stats_len(tw.merge.groups),),
-                        dtype=torch.float64, device=b0.device)
-    m = tw.merge
+    stats = torch.empty((m.groups * 2,), device=b0.device)
+    partial = torch.empty((_cuda.work_items(H, W) * c_h * 2,),
+                          dtype=torch.float64, device=b0.device)
     err = lib.pmc_trunk(
-        b0.data_ptr(), ptrs, hws, n, x.data_ptr(), c_x, cat.data_ptr(),
-        y.data_ptr(), stats.data_ptr(), tw.y_idx.data_ptr(),
+        b0.data_ptr(), ptrs, hws, n, x.data_ptr(), c_x, y.data_ptr(),
+        stats.data_ptr(), partial.data_ptr(),
+        _cuda.counters(b0.device).data_ptr(), tw.y_idx.data_ptr(),
         tw.y_w.data_ptr(), tw.x_idx.data_ptr(), tw.x_w.data_ptr(),
-        m.packed.data_ptr(), m.bias.data_ptr(), m.gn_scale.data_ptr(),
+        m.frag.data_ptr(), m.bias.data_ptr(), m.gn_scale.data_ptr(),
         m.gn_bias.data_ptr(), c_h, H, W, m.groups, _cuda.stream(b0))
     trunk.launches += 1
     _cuda.raise_on_error(err, "trunk")

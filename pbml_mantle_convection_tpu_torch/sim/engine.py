@@ -22,8 +22,9 @@ Per step: the Stokes solve, the energy sources, the energy step
 (``ops/advect_kernel.py``: one CUDA call on the card), core cooling, BC
 stamping and the clip to [0, 2]. In ML/ML_STOKES with Di = 0 and no core
 cooling, and with the fused executor (``models/fast_path.py``) as the
-surrogate, the step is instead 8 ``layer_stack`` + 1 ``trunk`` + 1
-``curl_advect_epilogue`` kernel calls plus a few elementwise ops. Nothing
+surrogate, the step is instead 4 ``layer_stack`` (stem, the grouped
+branches, merges 2 and 3) + 1 ``trunk`` + 1 ``curl_advect_epilogue``
+kernel calls plus a few elementwise ops. Nothing
 in a step of the surrogate modes reads a value back to the host, so
 :meth:`SimEngine.multi_step` queues N steps without a round trip; the PT
 solve reads its residual once per ``check_every`` iterations, and the

@@ -12,7 +12,8 @@ import torch
 from pbml_mantle_convection_tpu_torch.ops.advect_kernel import (
     advect_diffuse_step_fused, advect_diffuse_step_plain)
 from pbml_mantle_convection_tpu_torch.ops.branch_kernel import (
-    layer_stack, layer_stack_plain, pack_stack)
+    layer_stack, layer_stack_plain, layer_stacks, layer_stacks_plain,
+    pack_stack)
 from pbml_mantle_convection_tpu_torch.ops.epilogue_kernel import (
     curl_advect_epilogue, curl_advect_epilogue_plain, epilogue_consts)
 from pbml_mantle_convection_tpu_torch.ops.merge_kernel import (
@@ -73,6 +74,104 @@ def test_cuda_layer_stack_matches_plain(cuda, cfg):
     assert float((y - yp).abs().max()) <= 1e-4 * float(yp.abs().max())
     if pool:
         assert float((p - pp).abs().max()) <= 1e-6 * float(pp.abs().max())
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(128, 506), (256, 256)])
+def test_cuda_layer_stacks_grouped_matches_plain(cuda, H, W):
+    """The five branch stacks in one call per layer (fields 128×506 down
+    to 8×31: odd widths 253, 63, 31) against five plain stacks, within
+    1e-4 of max |plain|; one launch counted; two calls give the same
+    bits."""
+    g = torch.Generator().manual_seed(11)
+    sizes = [(H >> l, W >> l) for l in range(5)]
+    xs = [torch.randn(16, h, w, generator=g).to(cuda) for h, w in sizes]
+    sws = [_random_stack(16, 16, 6, 4, seed=20 + l, device=cuda)
+           for l in range(5)]
+    n0 = layer_stack.launches
+    ys = layer_stacks(xs, sws)
+    assert layer_stack.launches == n0 + 1
+    refs = layer_stacks_plain(xs, sws)
+    again = layer_stacks(xs, sws)
+    torch.cuda.synchronize()
+    for y, ref, y2, (h, w) in zip(ys, refs, again, sizes):
+        assert y.shape == (16, h, w)
+        assert _rel(y, ref) <= 1e-4
+        assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [
+    (16, 16, 2, 4, True, True, (6, 6)),        # the ring is everything
+    (16, 16, 1, 4, True, True, (7, 9)),
+    (16, 16, 2, 4, True, True, (64, 253)),
+    (16, 16, 2, 4, True, True, (16, 63)),
+    (7, 16, 1, 4, True, True, (33, 31)),
+    (87, 16, 1, 4, True, True, (40, 70)),
+    (16, 8, 3, 2, True, True, (30, 45)),
+    (8, 8, 1, 2, True, False, (12, 100)),
+    (16, 1, 1, 1, False, False, (128, 506)),
+    (16, 16, 1, 1, False, True, (128, 506))])
+def test_cuda_layer_stack_shapes(cuda, cfg):
+    """One field at the edge cases of the work list: the minimum 6×6
+    field, odd sizes, c_in 7 and 87, c_o 16, 8 and 1, with and without
+    GroupNorm and GELU; the same bits on a second call."""
+    c_i, c_o, R, groups, use_gn, use_act, (H, W) = cfg
+    sw = _random_stack(c_i, c_o, R, groups, use_gn, use_act, seed=3,
+                       device=cuda)
+    x = torch.randn(c_i, H, W, generator=torch.Generator().manual_seed(4))
+    x = x.to(cuda)
+    y, _ = layer_stack(x, sw)
+    y2, _ = layer_stack(x, sw)
+    ref, _ = layer_stack_plain(x, sw)
+    torch.cuda.synchronize()
+    assert y.shape == (c_o, H, W)
+    assert _rel(y, ref) <= 1e-4
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(128, 506), (256, 256), (96, 130)])
+def test_cuda_layer_stack_pyramid_matches_plain(cuda, H, W):
+    """The stem with the four successive 2×2 pools of its output (the
+    pyramid levels' inputs, odd sizes floor) from its last pass."""
+    sw = _random_stack(7, 16, 1, 4, seed=5, device=cuda)
+    x = torch.randn(7, H, W, generator=torch.Generator().manual_seed(6))
+    x = x.to(cuda)
+    y, pools = layer_stack(x, sw, pyramid=4)
+    ref, ref_pools = layer_stack_plain(x, sw, pyramid=4)
+    torch.cuda.synchronize()
+    assert len(pools) == 4
+    for a, b in zip([y, *pools], [ref, *ref_pools]):
+        assert a.shape == b.shape
+        assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,c_h", [(256, 256, 16), (96, 130, 8)])
+def test_cuda_trunk_shapes(cuda, H, W, c_h):
+    """The trunk at 256², and at c_h=8 on a grid whose coarse widths are
+    odd; the same bits on a second call."""
+    merge = _random_stack(5 * c_h + 7, c_h, 1, max(1, c_h // 4), seed=7,
+                          device=cuda)
+    hw = [(H // 2 ** l, W // 2 ** l) for l in range(1, 5)]
+    tw = trunk_weights(merge, hw, H, W)
+    g = torch.Generator().manual_seed(8)
+    b0 = torch.randn(c_h, H, W, generator=g).to(cuda)
+    coarse = [torch.randn(c_h, h, w, generator=g).to(cuda) for h, w in hw]
+    x = torch.randn(7, H, W, generator=g).to(cuda)
+    n0 = trunk.launches
+    y = trunk(b0, coarse, x, tw)
+    assert trunk.launches == n0 + 1
+    y2 = trunk(b0, coarse, x, tw)
+    yp = trunk_plain(b0, coarse, x, tw)
+    torch.cuda.synchronize()
+    assert _rel(y, yp) <= 1e-4
+    assert torch.equal(y, y2)
 
 
 @pytest.mark.cuda

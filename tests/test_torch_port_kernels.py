@@ -24,13 +24,14 @@ from pbml_mantle_convection_tpu.sim.grid import Grid as JGrid  # noqa: E402
 
 from pbml_mantle_convection_tpu_torch.models.layers import BLC_CLASSES  # noqa: E402
 from pbml_mantle_convection_tpu_torch.ops.branch_kernel import (  # noqa: E402
-    layer_stack, layer_stack_plain, pack_stack)
+    _tf32, layer_stack, layer_stack_plain, layer_stacks, layer_stacks_plain,
+    pack_stack, weight_fragments)
 from pbml_mantle_convection_tpu_torch.ops.epilogue_kernel import (  # noqa: E402
     curl_advect_epilogue, curl_advect_epilogue_plain, epilogue_consts)
 from pbml_mantle_convection_tpu_torch.ops.merge_kernel import (  # noqa: E402
     trunk, trunk_plain, trunk_weights)
 from pbml_mantle_convection_tpu_torch.ops.resize import (  # noqa: E402
-    _resize_matrix_np)
+    _resize_matrix_np, avg_pool_nchw)
 from pbml_mantle_convection_tpu_torch.physics.advection import (  # noqa: E402
     grid_metrics)
 
@@ -122,6 +123,82 @@ def test_layer_stack_pool_matches_jax_kernel():
     _, pooled = layer_stack(xt, sw, pool=True)
     np.testing.assert_allclose(pooled.permute(1, 2, 0).numpy(), ref,
                                rtol=2e-6, atol=2e-6)
+
+
+def _jax_stack(x, params, H, W, C):
+    """The JAX LayerStack of ``params`` on NHWC ``x`` in interpret mode."""
+    stack = LayerStack([_jax_layer_dict(p) for p in params], H, W, 5,
+                       act=jl.get_activation("gelu"), learned=True,
+                       interpret=True)
+    out6 = stack(space_to_depth_rect(x, 2, 4)[0])
+    return np.asarray(depth_to_space_rect(out6[None], 2, 4, C)[0])
+
+
+def test_layer_stacks_plain_matches_jax_kernel_per_level():
+    """The grouped call (one stack per pyramid level, fields of different
+    sizes) on CPU tensors: each level against the JAX LayerStack in
+    interpret mode, float32, tol 2e-5, as
+    test_layer_stack_plain_matches_jax_kernel."""
+    C, R = 16, 2
+    sizes = [(16, 24), (16, 32), (12, 16)]
+    xs, sws, refs = [], [], []
+    for l, (H, W) in enumerate(sizes):
+        x, params = _fluid_stack(H, W, C, C, R, seed=10 * l)
+        refs.append(_jax_stack(x, params, H, W, C))
+        sws.append(pack_stack([_flax_layer_weights(p, F32) for p in params],
+                              groups=C // 4))
+        xs.append(torch.tensor(np.asarray(x[0])).permute(2, 0, 1)
+                  .contiguous())
+    n0 = layer_stack.launches
+    ys = layer_stacks(xs, sws)               # CPU tensors → plain version
+    assert layer_stack.launches == n0
+    for y, ref, y1 in zip(ys, refs, layer_stacks_plain(xs, sws)):
+        assert torch.equal(y, y1)
+        np.testing.assert_allclose(y.permute(1, 2, 0).numpy(), ref,
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_layer_stack_pyramid_plain_is_successive_pools():
+    """``pyramid`` returns the successive VALID 2×2 pools of the output
+    (odd sizes floor), as the per-level ``pool`` of the unfused chain
+    computed them from each level's input."""
+    x, params = _fluid_stack(40, 75, 7, 16, 1, seed=4)
+    sw = pack_stack([_flax_layer_weights(params[0], F32)], groups=4)
+    xt = torch.tensor(np.asarray(x[0])).permute(2, 0, 1).contiguous()
+    y, pools = layer_stack(xt, sw, pyramid=3)
+    assert [tuple(p.shape) for p in pools] == [(16, 20, 37), (16, 10, 18),
+                                              (16, 5, 9)]
+    prev = y
+    for p in pools:
+        assert torch.equal(p, avg_pool_nchw(prev, 2))
+        prev = p
+    with pytest.raises(ValueError):
+        layer_stack(xt, sw, pool=True, pyramid=1)
+
+
+def test_weight_fragments_layout():
+    """The kernel's B fragments: lane 4g + t of (class, chunk q, tap, tile
+    j) holds the TF32 hi/lo parts of w[8j + g, 8q + t] and
+    w[8j + g, 8q + t + 4]; hi + lo recovers the float32 weight to ~2^-22
+    relative; channels past c_in and c_o are zero."""
+    g = torch.Generator().manual_seed(0)
+    c_o, c_in = 16, 11
+    w9 = [torch.randn(c_o, c_in, 5, 5, generator=g) for _ in range(9)]
+    frag = weight_fragments(w9).reshape(9, 2, 25, 2, 32, 4)
+    for cls, tap, q, j, lane in ((0, 0, 0, 0, 0), (4, 12, 1, 1, 31),
+                                 (8, 24, 1, 0, 6), (3, 7, 0, 1, 13)):
+        gg, t = lane // 4, lane % 4
+        ky, kx = divmod(tap, 5)
+        for k, (hi, lo) in enumerate(((0, 2), (1, 3))):
+            ci, co = 8 * q + t + 4 * k, 8 * j + gg
+            want = w9[cls][co, ci, ky, kx] if ci < c_in else torch.tensor(0.)
+            h, l_ = frag[cls, q, tap, j, lane, hi], frag[cls, q, tap, j,
+                                                          lane, lo]
+            assert torch.equal(h, _tf32(h)) and torch.equal(l_, _tf32(l_))
+            assert abs(float(h + l_ - want)) <= 2.0 ** -21 * abs(float(want))
+    # round to nearest, ties away from zero, at 10 mantissa bits
+    v = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12])
+    assert _tf32(v).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
 
 
 @pytest.mark.parametrize("H,W", [(16, 32), (18, 34)])

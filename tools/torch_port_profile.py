@@ -11,9 +11,10 @@ with core cooling, Di=0.5 and decay) — and prints:
 * wall time per step with a synchronise at the end of the run, and the
   host's time to enqueue one step (median over 2-step runs that start on
   an idle device, short enough that the launch queue never fills);
-* from ``torch.profiler`` over a short steady window: device kernel time
-  per step, grouped by kernel name and again by (kernel, launch grid) —
-  which separates the pyramid levels — and the device's idle share
+* from ``torch.profiler`` over a short steady window: device time and
+  device launches (kernels and copies) per step, in all and grouped by
+  kernel name, and again by (kernel, launch grid) — which separates the
+  pyramid levels — and the device's idle share
   (1 − summed kernel time / wall time; one stream, so kernels do not
   overlap).
 
@@ -99,9 +100,11 @@ def main() -> int:
     prof.export_chrome_trace(str(trace_path))
 
     by_kernel = defaultdict(float)
+    launches = defaultdict(int)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.name] += e.device_time_total / 1e3     # µs → ms
+            launches[e.name] += 1
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
     result = {
@@ -112,6 +115,8 @@ def main() -> int:
         "device_kernel_ms_per_step": busy / n,
         "device_idle_share": 1.0 - busy / (t_prof * 1e3),
         "kernels_ms_per_step": {k: v / n for k, v in top[:15]},
+        "device_launches_per_step": sum(launches.values()) / n,
+        "launches_per_step": {k: launches[k] / n for k, _ in top[:15]},
     }
     for k, v in top[:15]:
         print(f"{v / n:9.4f} ms/step  {k[:100]}")
