@@ -8,7 +8,11 @@ Run from the repository root, with no arguments::
 1. prints the card's name and power limit, builds the CUDA kernels from
    ``pbml_mantle_convection_tpu_torch/csrc`` (nvcc, sm_90a), prints the
    build time, and checks with ``cuobjdump --dump-sass`` that the layer
-   kernels of ``layer_stack`` and ``trunk`` hold TF32 tensor-core MMAs;
+   kernels of ``layer_stack`` and ``trunk`` and every ``slice_pool_kernel``
+   instance hold TF32 tensor-core MMAs (the pool's in threes: 3xTF32);
+   then, under PyTorch's default flags (TF32 convs allowed), holds a small
+   NewFluidNet and a small TransolverStructured2D against the same modules
+   in float64 and times the float32 guard of the port's convs;
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the flagship's 128×506 rollout gives it (TF32 off), and times
    both;
@@ -27,7 +31,9 @@ Run from the repository root, with no arguments::
    functions;
 5. serves the Transolver: holds both slice-attention kernels against
    their plain versions at BH=8, N=64,768 with (D, G) = (16, 32) (the
-   serving shape) and (32, 64), and at a ragged N, and times them; drives
+   serving shape), (32, 64), (64, 128) and (128, 128) in float32 and at
+   the serving shape in bfloat16, at a ragged N and in float64, and times
+   them beside their byte and operation bounds; drives
    ``cli/benchmark.py --what inference -net transolver_structured`` at
    the serving configuration (``ModelConfig`` defaults: 128×506, 5
    layers, n_hidden=128, 8 heads, 32 slices; seeded random weights) and
@@ -91,6 +97,12 @@ TOL = {"layer_stack": 1e-4, "trunk": 1e-4, "curl_advect_epilogue": 1e-5,
        "slice_deslice": 1e-5}
 TOL_ADVECT_F64 = 1e-12
 TOL_SLICE_F64 = 1e-12
+# bfloat16 slice kernels against the float32 plain version of the same
+# bfloat16 values: the rounding of a bfloat16 output (2^-8 relative), twice
+TOL_SLICE_16 = 8e-3
+# float32 modules against float64 at PyTorch's default flags: the conv
+# kernels' bound (TF32 convs land near 1e-3)
+TOL_MODULE_F64 = 1e-4
 # one Transolver forward, kernel path vs the einsum formulation, relative
 # to max |plain|: the stream function (the last block's output) after 5
 # blocks of float32 attention; u and v are its central differences, ~10x
@@ -176,9 +188,12 @@ def stack_work(sw, H, W, n_pyr=0):
 
 def check_sass(so) -> None:
     """The layer kernels (``blc_fused_kernel``, in layer_stack.cu's and in
-    trunk.cu's objects) run their conv on the tensor cores: their SASS in
-    the built library holds TF32 ``HMMA`` (or ``HGMMA``) instructions.
-    Prints the count per kernel instance (``cuobjdump --dump-sass``)."""
+    trunk.cu's objects) and the pool kernel (``slice_pool_kernel``, one
+    instance per storage type and G bucket) run their products on the
+    tensor cores: their SASS in the built library holds TF32 ``HMMA`` (or
+    ``HGMMA``) instructions, the pool's a multiple of three (3xTF32: three
+    products for each float32-accurate one). Prints the count per kernel
+    instance (``cuobjdump --dump-sass``)."""
     import shutil
     from pathlib import Path
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -190,19 +205,32 @@ def check_sass(so) -> None:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if "blc_fused_kernel" in m.group(1) else None
+            fn = m.group(1) if re.search(
+                r"blc_fused_kernel|slice_pool_kernel", m.group(1)) else None
             if fn:
                 counts[fn] = 0
         elif fn and re.search(r"\bH(G)?MMA\.\S*TF32", line):
             counts[fn] += 1
+    pool = {}
     for name, n in sorted(counts.items()):
+        t = re.search(r"slice_pool_kernelI(\w+?)Li(\d+)E", name)
+        if t:
+            inst = f"<{t.group(1).lstrip('0123456789_')}, {t.group(2)}>"
+            pool[inst] = n
+            print(f"sass: slice_attention.cu slice_pool_kernel{inst}: {n} "
+                  f"TF32 tensor-core MMA instructions")
+            continue
         src = "trunk.cu" if "trunk_cu" in name else "layer_stack.cu"
         t = re.search(r"blc_fused_kernelILi(\d+)ELb(\d)", name)
         inst = f"<{t.group(1)}, {t.group(2)}>" if t else name
         print(f"sass: {src} blc_fused_kernel{inst}: {n} TF32 tensor-core "
               f"MMA instructions")
-    if len(counts) < 2 or not all(counts.values()):
+    layer = [n for k, n in counts.items() if "blc_fused_kernel" in k]
+    if len(layer) < 2 or not all(layer):
         raise AssertionError(f"layer kernels without TF32 MMA: {counts}")
+    if len(pool) < 9 or not all(n and n % 3 == 0 for n in pool.values()):
+        raise AssertionError(f"slice_pool_kernel instances without 3xTF32 "
+                             f"MMA: {pool}")
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -669,21 +697,24 @@ def slice_errors(args):
     the same inputs, the plain versions run in float64 (a float32 plain
     product sums 64,768 terms in its own order and is no closer to the
     exact sums than the kernel: both errors are printed), and whether a
-    second pool call gives the same bits."""
+    second pool call gives the same bits. 16-bit inputs: the plain
+    versions in float32 of the same values."""
     import torch
     from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
         slice_deslice, slice_deslice_plain, slice_pool, slice_pool_plain)
     fx, xm, ws, bs, temp, tok = args
-    wide = [a.double() for a in args]
+    ref_type = (torch.float32 if fx.dtype in (torch.bfloat16, torch.float16)
+                else torch.float64)
+    wide = [a.to(ref_type) for a in args]
     num, den = slice_pool(fx, xm, ws, bs, temp)
     ref = slice_pool_plain(*wide[:5])
-    pool = max(rel_err(num.double(), ref[0]), rel_err(den.double(), ref[1]),
-               key=lambda e: e[1])
-    pool_plain = max((rel_err(a.double(), b)[1] for a, b in
+    pool = max(rel_err(num.to(ref_type), ref[0]),
+               rel_err(den.to(ref_type), ref[1]), key=lambda e: e[1])
+    pool_plain = max((rel_err(a.to(ref_type), b)[1] for a, b in
                       zip(slice_pool_plain(fx, xm, ws, bs, temp), ref)))
     same = all(bool(torch.equal(a, b)) for a, b in
                zip((num, den), slice_pool(fx, xm, ws, bs, temp)))
-    desl = rel_err(slice_deslice(xm, tok, ws, bs, temp).double(),
+    desl = rel_err(slice_deslice(xm, tok, ws, bs, temp).to(ref_type),
                    slice_deslice_plain(wide[1], wide[5], *wide[2:5]))
     return pool, desl, same, pool_plain
 
@@ -696,16 +727,27 @@ def slice_work(BH, N, D, G, itemsize=4):
     return 2 * BH * N * D * itemsize, 4 * BH * N * G * D
 
 
-def check_slice(heads=8, N=128 * 506, device="cuda"):
-    """Phase 5a: both slice kernels against their plain versions at the
-    serving shape and at D=32, G=64, then at a ragged N and in float64;
-    times each. Returns the serving shape's records."""
+# check_slice: float32 at the serving shape (the records), the JAX
+# docstring's (32, 64), and the widest the kernels take; bfloat16 at the
+# serving shape, held against the float32 plain version of its values
+SLICE_CASES = ((16, 32, "float32"), (32, 64, "float32"),
+               (64, 128, "float32"), (128, 128, "float32"),
+               (16, 32, "bfloat16"))
+
+
+def check_slice(heads=8, N=128 * 506, device="cuda", cases=SLICE_CASES):
+    """Phase 5a: both slice kernels against their plain versions at
+    ``cases``, then at a ragged N and in float64; times each beside its
+    bounds (``slice_pool``: bytes and 3xTF32 operations; ``slice_deslice``:
+    bytes and float32 SIMT operations). Returns the serving shape's
+    float32 records."""
     import torch
     from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
         slice_deslice, slice_deslice_plain, slice_pool, slice_pool_plain)
     rec = {}
-    for D, G in ((16, 32), (32, 64)):
-        args = slice_inputs(heads, N, D, G, torch.float32, D, device)
+    for D, G, name_t in cases:
+        dtype = getattr(torch, name_t)
+        args = slice_inputs(heads, N, D, G, dtype, D, device)
         fx, xm, ws, bs, temp, tok = args
         (pe, pr), (de, dr), same, ppr = slice_errors(args)
         calls = {
@@ -715,30 +757,41 @@ def check_slice(heads=8, N=128 * 506, device="cuda"):
             "slice_deslice": (
                 lambda: slice_deslice(xm, tok, ws, bs, temp),
                 lambda: slice_deslice_plain(xm, tok, ws, bs, temp), de, dr)}
-        bms, by = bound_ms(*slice_work(heads, N, D, G))
+        nb, fl = slice_work(heads, N, D, G, fx.element_size())
+        tol = TOL_SLICE_16 if fx.element_size() == 2 else TOL["slice_pool"]
+        wide = D * G > 2048
         for name, (fn, plain, err, rel) in calls.items():
-            ms = cuda_ms(fn, n=50)
-            qms = queued_ms(fn)
-            pms = cuda_ms(plain, n=10)
-            note = (f"; float32 plain vs float64 rel {ppr:.3e}"
+            ms = cuda_ms(fn, n=10 if wide else 50)
+            qms = queued_ms(fn, n=20 if wide else 200)
+            pms = cuda_ms(plain, n=3 if wide else 10)
+            tb, _ = bound_ms(nb, 0.0)
+            to = bound_ms(0.0, fl, tensor_cores=name == "slice_pool")[0]
+            bms, by = bound_ms(nb, fl, tensor_cores=name == "slice_pool")
+            kind = ("3xTF32 tensor cores" if name == "slice_pool"
+                    else "float32 SIMT")
+            note = (f"; plain in {name_t} vs float64 rel {ppr:.3e}"
                     if name == "slice_pool" else "")
-            print(f"{name} BH={heads} N={N} D={D} G={G} f32: max_abs_err="
-                  f"{err:.3e} rel={rel:.3e} (tol {TOL[name]}{note}) "
-                  f"ms={ms:.4f} "
-                  f"(launches queued: {qms:.4f}) plain_ms={pms:.4f} "
-                  f"bound_ms={bms:.4f} ({by}); library_ms: none (no one "
-                  f"PyTorch call computes it)")
-            if not rel <= TOL[name]:
-                raise AssertionError(f"{name} D={D} G={G} disagrees: {rel}")
-            if (D, G) == (16, 32):
+            print(f"{name} BH={heads} N={N} D={D} G={G} {name_t}: "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol}{note}) "
+                  f"ms={ms:.4f} (device only, launches queued: {qms:.4f}) "
+                  f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}; bytes "
+                  f"{tb:.4f}, operations {to:.4f} at the {kind} rate); "
+                  f"library_ms: none (no one PyTorch call computes it)")
+            if not rel <= tol:
+                raise AssertionError(f"{name} D={D} G={G} {name_t} "
+                                     f"disagrees: {rel}")
+            if (D, G, name_t) == (16, 32, "float32"):
                 rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                 bound_ms=bms, bound_by=by, library_ms=None)
+                                 bound_ms=bms, bound_by=by, library_ms=None,
+                                 queued_ms=qms, bytes_bound_ms=tb,
+                                 ops_bound_ms=to)
         if not same:
-            raise AssertionError("slice_pool: two calls differ")
+            raise AssertionError(f"slice_pool {name_t}: two calls differ")
     for BH, n, D, G, dtype, tol in (
             (heads, N - 77, 16, 32, torch.float32, TOL["slice_pool"]),
             (heads, 4133, 32, 64, torch.float64, TOL_SLICE_F64),
-            (3, 1001, 64, 64, torch.float64, TOL_SLICE_F64)):
+            (3, 1001, 64, 64, torch.float64, TOL_SLICE_F64),
+            (2, 700, 128, 128, torch.float64, TOL_SLICE_F64)):
         (pe, pr), (de, dr), same, _ = slice_errors(
             slice_inputs(BH, n, D, G, dtype, n, device))
         print(f"slice kernels BH={BH} N={n} D={D} G={G} {dtype}: pool "
@@ -755,15 +808,85 @@ def check_slice(heads=8, N=128 * 506, device="cuda"):
     return rec
 
 
-def transolver_input(H, W, device="cuda"):
+def check_default_flags(device="cuda"):
+    """Phase 1b: under PyTorch's default flags (cuDNN may run float32 convs
+    in TF32) the port's module paths convolve in float32: a small
+    NewFluidNet and a small TransolverStructured2D against the same
+    modules in float64 (≤ TOL_MODULE_F64 of max |f64|); then the host
+    cost of the float32 guard (``models/layers.py::float32_convs``) per
+    call. Leaves the flags as it found them."""
+    import copy
+
     import torch
-    from pbml_mantle_convection_tpu_torch.cli.benchmark import (
-        inference_input)
+    from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet
+    from pbml_mantle_convection_tpu_torch.models.layers import float32_convs
+    from pbml_mantle_convection_tpu_torch.models.transolver import (
+        TransolverStructured2D)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False    # PyTorch's
+    try:
+        # widths at which cuDNN takes its TF32 kernels (narrower convs
+        # stay float32 under either flag)
+        g = torch.Generator().manual_seed(12)
+        nets = [
+            ("NewFluidNet levels=3 c_h=16 repeats=2 64x96",
+             NewFluidNet(levels=3, c_i=7, c_h=16, c_o=1, act_fn="gelu",
+                         r_p="learned", loss_type="curl", repeats=2, f=5,
+                         p_pred=False, seed=0, device=device),
+             torch.rand(1, 64, 96, 7, generator=g)),
+            ("TransolverStructured2D n_layers=2 n_hidden=256 32x48",
+             TransolverStructured2D(H=32, W=48, n_layers=2, n_hidden=256,
+                                    n_head=8, slice_num=32, seed=0,
+                                    device=device),
+             torch.rand(1, 32 * 48, 7, generator=g))]
+        with torch.no_grad():
+            for name, net, x in nets:
+                x = x.to(device)
+                got = net(x)
+                ref = copy.deepcopy(net).double()(x.double())
+                rel = max(rel_err(a.double(), b)[1]
+                          for a, b in zip(got[:2], ref[:2]))
+                print(f"default flags (cudnn.allow_tf32=True) {name}: "
+                      f"u, v vs float64 rel={rel:.3e} (tol "
+                      f"{TOL_MODULE_F64})")
+                if not (rel <= TOL_MODULE_F64 and cudnn.allow_tf32):
+                    raise AssertionError(f"{name} at default flags: {rel}")
+        x = torch.zeros(1, device=device)
+        cost = {}
+        for flag in (True, False):
+            cudnn.allow_tf32 = flag
+            n = 20000
+            t0 = time.perf_counter()
+            for _ in range(n):
+                with float32_convs(x):
+                    pass
+            cost[flag] = (time.perf_counter() - t0) / n * 1e6
+        print(f"float32_convs host cost: {cost[True]:.2f} us per call with "
+              f"TF32 allowed, {cost[False]:.2f} us with it off")
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def transolver_input(H, W, device="cuda"):
+    """A seeded, non-zero Transolver input (1, H·W, 7): the surrogate's
+    channels of the ``bench.py`` field plus 1% noise, so that the kernel
+    path and the einsum path are compared on varied slice weights (the
+    CLI feeds zeros, as the JAX CLI does)."""
+    import torch
     from pbml_mantle_convection_tpu_torch.constants import SimParams
     from pbml_mantle_convection_tpu_torch.sim.grid import Grid
-    return inference_input("transolver", Grid(H=H, W=W,
-                                              aspect=(W - 2) / (H - 2)),
-                           SimParams(3.0, 1e8, 10.0), torch.float32, device)
+    from pbml_mantle_convection_tpu_torch.sim.stepper import (
+        assemble_fluidnet_input, make_static_fields)
+    grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
+    params = SimParams(3.0, 1e8, 10.0)
+    rng = np.random.default_rng(0)
+    T = np.clip(1.0 - grid.yc + 0.05 * np.sin(6.28 * grid.xc)
+                + 0.01 * rng.standard_normal(grid.yc.shape), 0.0, 1.0)
+    x, _ = assemble_fluidnet_input(
+        torch.as_tensor(T[None], dtype=torch.float32, device=device),
+        make_static_fields(grid, params, torch.float32, device), params)
+    return x.reshape(1, H * W, x.shape[-1])
 
 
 def run_transolver(counters, iters=50, H=128, W=506, device="cuda"):
@@ -887,6 +1010,7 @@ def main() -> int:
         if re.search(r"Function properties|registers|spill", line):
             print("  ptxas:", line.strip())
     check_sass(so)
+    check_default_flags()
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -6,16 +6,17 @@ and its metric names; prints one JSON line. ``--what inference`` times
 reference's timing loop, load_fluidnet.ipynb cell 7): NewFluidNet through
 the fused executor (``--raw-module``: the module), the Transolvers through
 their forward. ``--what rollout`` times ``--steps`` coupled ML_STOKES
-steps of a NewFluidNet at B = 1 after a short warm-up. The input comes
-from a seeded temperature field, the weights from seed 0::
+steps of a NewFluidNet at B = 1 after a short warm-up. The inputs are
+the JAX CLI's: zeros for inference, the field of ``bench.py`` for the
+rollout; the weights come from seed 0::
 
     python -m pbml_mantle_convection_tpu_torch.cli.benchmark \\
         --what inference -net transolver_structured
 
 It runs on the card; only ``--device cpu`` runs it elsewhere, and with no
-card and no such flag it fails. It leaves PyTorch's TF32 settings as the
-caller has them (by default cuDNN convs may use TF32) and prints them
-beside the latency.
+card and no such flag it fails. It turns TF32 off for cuDNN convolutions
+and matrix products (float32 throughout, as the metrics are defined) and
+prints both flags beside the result.
 """
 
 from __future__ import annotations
@@ -32,8 +33,7 @@ from ..models.fast_path import FastNewFluidNet, unsupported_reason
 from ..models.registry import ModelConfig, build_model
 from ..sim.engine import SimEngine
 from ..sim.grid import Grid
-from ..sim.stepper import (TimeStepper, assemble_fluidnet_input,
-                           make_static_fields)
+from ..sim.stepper import TimeStepper
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -86,25 +86,19 @@ def _unported(args) -> str | None:
     return None
 
 
-def seeded_temperature(grid: Grid, seed: int = 0) -> np.ndarray:
-    """(1, H, W) initial field of ``bench.py`` plus 1% seeded noise."""
-    rng = np.random.default_rng(seed)
-    T = (1.0 - grid.yc + 0.05 * np.sin(6.28 * grid.xc)
-         + 0.01 * rng.standard_normal(grid.yc.shape))
-    return np.clip(T, 0.0, 1.0)[None]
+def initial_temperature(grid: Grid) -> np.ndarray:
+    """(1, H, W) initial field of the rollout: ``bench.py``'s, as the JAX
+    CLI builds it (JAX ``cli/benchmark.py:199-200``)."""
+    return np.clip(1.0 - grid.yc + 0.05 * np.sin(6.28 * grid.xc),
+                   0.0, 1.0)[None]
 
 
-def inference_input(network: str, grid: Grid, params: SimParams, dtype,
+def inference_input(network: str, H: int, W: int, c_i: int, dtype,
                     device) -> torch.Tensor:
-    """The 7-channel surrogate input of :func:`seeded_temperature`:
-    (1, H, W, 7), or (1, H·W, 7) flattened over the grid for the
-    Transolvers (the JAX ``data/dataset.py::UnstructuredDataset``)."""
-    T = torch.as_tensor(seeded_temperature(grid), dtype=dtype, device=device)
-    x, _ = assemble_fluidnet_input(
-        T, make_static_fields(grid, params, dtype, device), params)
-    if "transolver" in network:
-        x = x.reshape(1, grid.H * grid.W, x.shape[-1])
-    return x
+    """The JAX CLI's inference input (JAX ``cli/benchmark.py:79-82``):
+    zeros of (1, H·W, c_i) for the Transolvers, (1, H, W, c_i) else."""
+    shape = (1, H * W, c_i) if "transolver" in network else (1, H, W, c_i)
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def sync(device: torch.device) -> None:
@@ -122,6 +116,10 @@ def main(argv=None):
         raise SystemExit("benchmark: no CUDA device (pass --device cpu to "
                          "run on the CPU)")
     dtype = _DTYPES[args.dtype]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flags = {"tf32_conv": torch.backends.cudnn.allow_tf32,
+             "tf32_matmul": torch.backends.cuda.matmul.allow_tf32}
     H, W = args.H, args.W
     mc = ModelConfig(network=args.network, levels=args.levels,
                      c_h=args.c_h, repeats=args.repeats, kernel=args.kernel,
@@ -136,7 +134,8 @@ def main(argv=None):
             else "cpu")
 
     if args.what == "inference":
-        x = inference_input(args.network, grid, params, dtype, device)
+        x = inference_input(args.network, H, W, mc.channels[0], dtype,
+                            device)
         fwd = FastNewFluidNet(model, H, W) if fast else model
         with torch.no_grad():
             fwd(x)
@@ -146,15 +145,10 @@ def main(argv=None):
                 fwd(x)
             sync(device)
         ms = (time.perf_counter() - t0) / args.iters * 1e3
-        rec = {"metric": f"inference_latency_{args.network}_{H}x{W}",
-               "value": round(ms, 4), "unit": "ms", "iters": args.iters,
-               "device": name}
-        if device.type == "cuda":
-            # the Transolver's convs and Dense layers are cuDNN / cuBLAS
-            # calls, whose float32 speed and numerics follow these flags
-            rec.update(tf32_conv=torch.backends.cudnn.allow_tf32,
-                       tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
-        print(json.dumps(rec))
+        print(json.dumps({
+            "metric": f"inference_latency_{args.network}_{H}x{W}",
+            "value": round(ms, 4), "unit": "ms", "iters": args.iters,
+            "device": name, **flags}))
         return ms
 
     # rollout: the coupled ML_STOKES engine, B = 1
@@ -163,7 +157,7 @@ def main(argv=None):
         else model
     engine = SimEngine(TimeStepper(grid, params, apply_fn, cn_max=0.99,
                                    dtype=dtype, device=device))
-    state = engine.init_state(seeded_temperature(grid))
+    state = engine.init_state(initial_temperature(grid))
     state, _ = engine.multi_step(state, min(args.steps, 20))   # warm-up
     sync(device)
     t0 = time.perf_counter()
@@ -174,7 +168,7 @@ def main(argv=None):
         raise RuntimeError("rollout: T is not finite")
     print(json.dumps({"metric": f"rollout_steps_per_s_{H}x{W}",
                       "value": round(sps, 2), "unit": "steps/s",
-                      "device": name}))
+                      "device": name, **flags}))
     return sps
 
 

@@ -6,6 +6,8 @@
 // synchronise, and returns cudaGetLastError().
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace pmc {
@@ -14,4 +16,52 @@ namespace pmc {
 // branches the trunk upsamples.
 constexpr int kMaxLevels = 5;
 
+// Internal linkage: every .cu file compiles its own copies.
+namespace {
+
+// TF32 tensor-core products (blc_layer.cuh, slice_attention.cu). A float
+// x splits as hi = to_tf32(x), lo = to_tf32(x - hi); the 3xTF32 sum
+// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi in float32 is float32-accurate.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// D (16x8) += A (16x8, row) . B (8x8, col); lane (g = lane / 4,
+// t = lane % 4) holds a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4],
+// b = B[t][g], B[t+4][g], and d = D[g][2t], D[g][2t+1], D[g+8][2t],
+// D[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+// 16 bytes from src, or (valid false) 16 zero bytes and nothing read
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+}  // namespace
 }  // namespace pmc

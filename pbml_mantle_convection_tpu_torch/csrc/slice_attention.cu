@@ -9,78 +9,603 @@
 //                  den[bh, g]    = sum_n w[n, g]
 //   slice_deslice  out[bh, n, d] = sum_g w[n, g] tok[bh, g, d]
 // The (BH, N, G) weights never reach device memory: each kernel recomputes
-// them from x_mid, as the Pallas kernels do.
+// them from x_mid, as the Pallas kernels do. D and G run from 1 to kMaxDim.
+// Storage is float32, float64, bfloat16 or float16: 16-bit values are loaded
+// into float32, the math is float32 (float64 for float64), and the results
+// are stored in the input type, as the Pallas kernel does.
 //
 // What bounds it: at the serving shape (BH = 8, N = 64,768, D = 16, G = 32)
-// bytes: each kernel streams two (BH, N, D) float32 arrays, 66 MB, for
-// ~1.1 GFLOP of multiply-adds. At D = 32, G = 64 operations (4.2 GFLOP).
+// bytes: each kernel streams two (BH, N, D) float32 arrays, 66 MB (20 us at
+// 3.35 TB/s), for ~1.1 GFLOP of multiply-adds.
 //
-// Design: a block of kThreads threads takes tiles of P points. A tile of
-// x_mid (and of fx) is one contiguous run of P * D values: the block loads
-// it into shared memory coalesced, in rows padded to D + 1 (no bank
-// conflicts when each thread reads its own row). Thread t < P computes the
-// G logits of point t and their max-subtracted softmax into a shared
-// (P, G + 1) weight tile. Then every thread works on the tile's products,
-// consecutive threads on consecutive outputs.
-//   slice_pool: each block walks `tiles_per_chunk` tiles of one bh and keeps
-//   its share of the (G, D + 1) sums in registers (column D of the fx tile
-//   is 1, so that column sums the weights: den). A one-block-per-bh second
-//   pass adds the chunks in a fixed order. No float atomics: repeated calls
-//   give the same bits. The tail of N is masked, not padded, so den needs
-//   no correction for padded rows.
-//   slice_deslice: one tile per block; the attended tokens (G, D) are staged
-//   in shared memory and the (P, D) output tile is written coalesced.
-// Templated on float and double (accumulation in the input type). D and G
-// are runtime values up to kMaxDim; P is 128 in float, 64 in double, so the
-// largest shared-memory request stays under the 227 KB of a block.
+// slice_pool, float32 and 16-bit storage: both products on the tensor cores,
+// mma.sync m16n8k8 TF32 in 3xTF32 (x = hi + lo; a_lo*b_hi + a_hi*b_lo +
+// a_hi*b_hi summed in float32: float32-accurate, never single-pass TF32).
+// A block of 8 warps walks `tiles_per_chunk` tiles of P points of one bh
+// through a two-stage ring of shared-memory tiles of x_mid and fx filled by
+// cp.async: tile i+1 is in flight while tile i computes.
+//   1. logits (P x G) = X (P x D) . Ws (D x G). Warp w owns points
+//      16w..16w+15 and every column; Ws is staged once per block. Bias,
+//      temperature and the softmax across G run on the accumulator
+//      fragments (row max and sum by quad shuffles, expf); the warp then
+//      writes its weight rows over its own rows of X.
+//   2. [num | den] (G x (D + 1)) += W^T (G x P) . [F | 1] (P x (D + 1)): the
+//      staged F tile carries a column of ones, so the same product sums the
+//      weights (den). Each warp owns a run of the 16 x 8 output tiles; the
+//      tensor cores accumulate one tile's points, which are then added to
+//      float32 register sums (a chain of 1,408 points in the MMA
+//      accumulator drifted 1.3e-5 of max |num| on an H100).
+// Rows past N are zero-filled and get weight 0, so den needs no correction.
+// Every block writes its chunk's sums; a one-block-per-bh pass adds the
+// chunks in a fixed order: no float atomics, repeated calls give the same
+// bits. Tile rows are padded so that every fragment load is free of bank
+// conflicts; P (128, 64, 32 or 16) is the largest whose two stages fit in
+// a block's 227 KB; the grid is one wave (SMs x resident blocks per SM).
+//
+// slice_pool in float64, and slice_deslice: SIMT. A block of 128 threads
+// takes tiles of P points: it loads a tile of x_mid (and fx) into shared
+// rows padded to D + 1, thread t < P computes the G softmax weights of
+// point t into a shared (P, G + 1) tile, then every thread works on the
+// tile's products, consecutive threads on consecutive outputs.
+//   slice_pool (float64): each block walks `tiles_per_chunk` tiles of one bh
+//   and keeps a slab of kSimtAcc x 128 of the (G, D + 1) sums in registers
+//   (column D of the fx tile is 1: den); slabs are a third grid dimension.
+//   slice_deslice: one tile per block; the attended tokens (G, D) are
+//   staged in shared memory and the (P, D) output tile is written
+//   coalesced.
+// P is chosen at launch so that ws, tok and the tiles fit in 227 KB; where
+// ws and tok cannot (float64 at D = G = 128) they are read from global
+// memory.
+#include <cmath>
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
 #include "pmc_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxDim = 64;
-// registers per thread for the (G, D + 1) sums of slice_pool
-constexpr int kMaxAcc = (kMaxDim * (kMaxDim + 1) + kThreads - 1) / kThreads;
+using pmc::cp_async16_zfill;
+using pmc::cp_async_commit;
+using pmc::cp_async_wait_all;
+using pmc::mma_tf32;
+
+constexpr int kMaxDim = 128;
+constexpr int kSmemMax = 232448;  // 227 KB: the most one block may use
+// the most each of two resident blocks may use: half an SM's 228 KB, less
+// the 1 KB the runtime keeps per block
+constexpr int kSmemTwoBlocks = 233472 / 2 - 1024;
 constexpr int kDefaultSmem = 48 * 1024;
 
-template <typename T>
-struct Tile;
+// storage type <-> math type
+template <typename T, typename S>
+__device__ __forceinline__ T cvt(S x) {
+  return static_cast<T>(x);
+}
 template <>
-struct Tile<float> {
-  static constexpr int P = 128;
+__device__ __forceinline__ float cvt<float, __nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ float cvt<float, __half>(__half x) {
+  return __half2float(x);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16, float>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half cvt<__half, float>(float x) {
+  return __float2half(x);
+}
+
+template <typename S>
+struct Math {
+  using T = float;
 };
 template <>
-struct Tile<double> {
-  static constexpr int P = 64;
+struct Math<double> {
+  using T = double;
 };
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+bool dims_ok(int BH, int N, int D, int G) {
+  return BH >= 1 && BH <= 65535 && N >= 1 && D >= 1 && G >= 1 &&
+         D <= kMaxDim && G <= kMaxDim;
+}
+
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Blocks of `rows` grid rows (bh, slab) that cover `tiles` tiles each in
+// one wave of `slots` resident blocks: every chunk holds tiles_per_chunk
+// tiles (the last one may hold fewer) and at least one.
+void split_chunks(long long tiles, int slots, int rows, int* chunks,
+                  int* tiles_per_chunk) {
+  long long c = (slots + rows - 1) / rows;
+  c = c < 1 ? 1 : (c > tiles ? tiles : c);
+  const long long per = (tiles + c - 1) / c;
+  *tiles_per_chunk = static_cast<int>(per);
+  *chunks = static_cast<int>((tiles + per - 1) / per);
+}
+
+bool chunks_ok(long long tiles, int chunks, int tiles_per_chunk) {
+  return chunks >= 1 && tiles_per_chunk >= 1 &&
+         static_cast<long long>(chunks) * tiles_per_chunk >= tiles &&
+         static_cast<long long>(chunks - 1) * tiles_per_chunk < tiles;
+}
+
+template <typename Kernel>
+cudaError_t resident_slots(Kernel kernel, int threads, size_t smem,
+                           int* slots) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  *slots = sms * (per_sm > 0 ? per_sm : 1);
+  return e;
+}
+
+// ---------------------------------------------------------------------
+// slice_pool on the tensor cores (float32, bfloat16, float16 storage)
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+
+// Shared-memory layout of slice_pool_kernel (host-computed, passed by
+// value). Byte offsets: Ws (Dk, sws) floats at 0, bs at off_bs, the two
+// stages at off_stage. A stage holds P / 16 warp regions (16 rows of X at
+// stride sx, overwritten by 16 weight rows at stride sw) and then F
+// (P rows at stride sf, columns D..sf-1 = 1, 0, 0, ...).
+struct PoolLayout {
+  int P;        // points per tile
+  int kw;       // warp groups that split a tile's points in the sums
+  int Dk;       // D rounded up to 8: the logits' depth
+  int G8;       // G rounded up to 8: the logits' columns
+  int MT;       // 16-slice tiles of the sums
+  int NT2;      // 8-column tiles of the sums ([F | 1]: D + 1 columns)
+  int sws, sx, sw, sf;  // row strides (elements)
+  int region;   // bytes of one warp's X / weight rows
+  int off_bs, off_stage, stage_bytes, off_f, bytes;
+};
+
+// Do the 32 lanes of a fragment load hit 32 distinct banks (or share a
+// word)? Lane (g = lane / 4, t = lane % 4) reads element (g, t) (row_g) or
+// (t, g) of a tile whose rows are `stride` elements apart.
+bool conflict_free(int stride, int esize, bool row_g) {
+  long long word_at[32];
+  for (int b = 0; b < 32; ++b) word_at[b] = -1;
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const int row = row_g ? g : t, col = row_g ? t : g;
+    const long long word = (static_cast<long long>(row) * stride + col) *
+                           esize / 4;
+    const int b = static_cast<int>(word % 32);
+    if (word_at[b] >= 0 && word_at[b] != word) return false;
+    word_at[b] = word;
+  }
+  return true;
+}
+
+// The least row stride >= min_elems whose rows start 16-byte aligned
+// (cp.async) and whose fragment loads are free of bank conflicts.
+int pick_stride(int min_elems, int esize, bool row_g) {
+  const int step = 16 / esize;
+  int s = round_up(min_elems, step);
+  while (!conflict_free(s, esize, row_g)) s += step;
+  return s;
+}
+
+// sums fragments per warp: (GT / 16) x 17 tiles at D = 128, over 8 warps
+__host__ __device__ constexpr int acc_tiles(int GT) {
+  return (GT / 16 * 17 + kWarps - 1) / kWarps;
+}
+int g_bucket(int G) { return G <= 32 ? 32 : (G <= 64 ? 64 : 128); }
+
+// P: the largest tile whose two stages leave room for two resident blocks
+// (G <= 64: registers allow them), else the largest that fits. kw: as many
+// warp groups along the points as the output tiles leave warps for, so
+// that each warp's dependent MMA chains are short; their sums meet in
+// shared memory at the end.
+PoolLayout pool_layout(int D, int G, int esize) {
+  PoolLayout L{};
+  L.Dk = round_up(D, 8);
+  L.G8 = round_up(G, 8);
+  L.MT = (G + 15) / 16;
+  L.NT2 = (D + 1 + 7) / 8;
+  L.sws = pick_stride(L.G8, 4, false);
+  L.sx = pick_stride(L.Dk, esize, true);
+  L.sw = pick_stride(L.MT * 16, 4, false);
+  L.sf = pick_stride(L.NT2 * 8, esize, false);
+  L.region = 16 * (L.sx * esize > L.sw * 4 ? L.sx * esize : L.sw * 4);
+  L.off_bs = L.Dk * L.sws * 4;
+  L.off_stage = L.off_bs + round_up(L.G8 * 4, 16);
+  // sets L for the largest P whose two stages fit in `limit` bytes
+  auto fit = [&](int limit) {
+    for (L.P = 128; L.P >= 16; L.P /= 2) {
+      L.off_f = L.P / 16 * L.region;
+      L.stage_bytes = L.off_f + round_up(L.P * L.sf * esize, 16);
+      L.bytes = L.off_stage + 2 * L.stage_bytes;
+      if (L.bytes <= limit) return true;
+    }
+    return false;
+  };
+  if (!fit(G <= 64 ? kSmemTwoBlocks : kSmemMax) && !fit(kSmemMax)) {
+    L.P = 0;
+    return L;
+  }
+  const int n_out = L.MT * L.NT2;
+  const int acc = acc_tiles(g_bucket(G));
+  const int need = (n_out + acc - 1) / acc;  // warps that hold the sums
+  L.kw = 1;
+  while (2 * L.kw * need <= kWarps &&
+         2 * L.kw * n_out * 128 * 4 <= 2 * L.stage_bytes)
+    L.kw *= 2;
+  return L;
+}
+
+// x = hi + lo: hi rounded to TF32 by integer ops (cvt.rna costs more), lo
+// passed whole (the tensor cores read the top 19 bits of a TF32 operand)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a . b in 3xTF32: the small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma_tf32(d, al[0], al[1], al[2], al[3], bh0, bh1);
+  mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bl0, bl1);
+  mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bh0, bh1);
+}
+
+// GT: G rounded up to 32, 64 or 128 (the logits' accumulator fragments).
+// part: (BH, chunks, G, D + 1) float32 sums, column D = den.
+template <typename S, int GT>
+__global__ void __launch_bounds__(kThreads)
+slice_pool_kernel(const S* __restrict__ fx, const S* __restrict__ xm,
+                  const S* __restrict__ ws, const S* __restrict__ bs,
+                  const S* __restrict__ temp, int N, int D, int G,
+                  int tiles_per_chunk, int vec, const PoolLayout L,
+                  float* __restrict__ part) {
+  constexpr int NT = GT / 8;  // logits fragments per warp
+  constexpr int ACC = acc_tiles(GT);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sws = reinterpret_cast<float*>(smem);
+  float* sbs = reinterpret_cast<float*>(smem + L.off_bs);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, chunk = blockIdx.x;
+  const int first = chunk * tiles_per_chunk;
+  const int count = min(tiles_per_chunk, (N + L.P - 1) / L.P - first);
+  const size_t base = static_cast<size_t>(bh) * N * D;
+  const float tb = cvt<float>(temp[bh]);
+  auto stage_at = [&](int s) {
+    return smem + L.off_stage + s * L.stage_bytes;
+  };
+  auto f_at = [&](int s) {
+    return reinterpret_cast<S*>(stage_at(s) + L.off_f);
+  };
+
+  // Ws and bs zero-padded; the ones column and zero padding of F
+  for (int i = tid; i < L.Dk * L.sws; i += kThreads) {
+    const int d = i / L.sws, c = i - d * L.sws;
+    sws[i] = d < D && c < G ? cvt<float>(ws[d * G + c]) : 0.f;
+  }
+  for (int c = tid; c < L.G8; c += kThreads)
+    sbs[c] = c < G ? cvt<float>(bs[c]) : 0.f;
+  const int padc = L.sf - D;
+  for (int s = 0; s < 2; ++s) {
+    S* f = f_at(s);
+    for (int i = tid; i < L.P * padc; i += kThreads) {
+      const int r = i / padc, c = D + (i - r * padc);
+      f[r * L.sf + c] = cvt<S>(c == D ? 1.f : 0.f);
+    }
+  }
+
+  // Tile `tile` into stage s: rows past N are zeros. vec: rows of x_mid
+  // and fx start 16-byte aligned (cp.async), else plain loads.
+  auto stage = [&](int tile, int s) {
+    const int n0 = tile * L.P, nv = min(L.P, N - n0);
+    unsigned char* x = stage_at(s);
+    S* f = f_at(s);
+    const S* gx = xm + base + static_cast<size_t>(n0) * D;
+    const S* gf = fx + base + static_cast<size_t>(n0) * D;
+    if (vec) {
+      const int cpr = D * static_cast<int>(sizeof(S)) / 16;
+      for (int i = tid; i < L.P * cpr; i += kThreads) {
+        const int r = i / cpr, c = i - r * cpr;
+        const bool ok = r < nv;
+        const size_t src = static_cast<size_t>(ok ? r : 0) * D * sizeof(S) +
+                           c * 16;
+        cp_async16_zfill(x + (r >> 4) * L.region +
+                             ((r & 15) * L.sx) * sizeof(S) + c * 16,
+                         reinterpret_cast<const unsigned char*>(gx) + src,
+                         ok);
+        cp_async16_zfill(reinterpret_cast<unsigned char*>(f + r * L.sf) +
+                             c * 16,
+                         reinterpret_cast<const unsigned char*>(gf) + src,
+                         ok);
+      }
+    } else {
+      for (int i = tid; i < L.P * D; i += kThreads) {
+        const int r = i / D, d = i - r * D;
+        const bool ok = r < nv;
+        S* xr = reinterpret_cast<S*>(x + (r >> 4) * L.region) +
+                (r & 15) * L.sx;
+        xr[d] = ok ? gx[static_cast<size_t>(r) * D + d] : cvt<S>(0.f);
+        f[r * L.sf + d] = ok ? gf[static_cast<size_t>(r) * D + d]
+                             : cvt<S>(0.f);
+      }
+    }
+  };
+
+  // this warp's group kg takes k-steps kg, kg + kw, ... of each tile; in
+  // it, the warp takes a run of the output tiles, m-major: o = (m, n)
+  const int n_out = L.MT * L.NT2;
+  const int wpg = kWarps / L.kw, kg = warp / wpg, wi = warp - kg * wpg;
+  const int per = (n_out + wpg - 1) / wpg;
+  const int o_first = wi * per;
+  const int o_count = max(0, min(per, n_out - o_first));
+  const int m_first = o_first / L.NT2, n_first = o_first - m_first * L.NT2;
+  float sum[ACC][4];
+#pragma unroll
+  for (int j = 0; j < ACC; ++j)
+    sum[j][0] = sum[j][1] = sum[j][2] = sum[j][3] = 0.f;
+  const float rtemp = 1.f / tb;
+
+  stage(first, 0);
+  cp_async_commit();
+  for (int it = 0; it < count; ++it) {
+    const int s = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile it landed; stage s ^ 1 is free again
+    if (it + 1 < count) stage(first + it + 1, s ^ 1);
+    cp_async_commit();
+    const int nv = min(L.P, N - (first + it) * L.P);
+    unsigned char* xw = stage_at(s);
+
+    // 1. logits and softmax weights of this warp's 16 points
+    if (warp * 16 < L.P) {
+      unsigned char* region = xw + warp * L.region;
+      const S* x0 = reinterpret_cast<const S*>(region) + g * L.sx;
+      const S* x1 = x0 + 8 * L.sx;
+      const int nt = L.G8 / 8;
+      float acc[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      for (int ks = 0; ks < L.Dk / 8; ++ks) {
+        const int k0 = ks * 8 + t, k1 = k0 + 4;
+        uint32_t ah[4], al[4];
+        split(k0 < D ? cvt<float>(x0[k0]) : 0.f, ah[0], al[0]);
+        split(k0 < D ? cvt<float>(x1[k0]) : 0.f, ah[1], al[1]);
+        split(k1 < D ? cvt<float>(x0[k1]) : 0.f, ah[2], al[2]);
+        split(k1 < D ? cvt<float>(x1[k1]) : 0.f, ah[3], al[3]);
+        const float* b0 = sws + k0 * L.sws + g;
+        const float* b1 = sws + k1 * L.sws + g;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j < nt) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split(b0[j * 8], bh0, bl0);
+            split(b1[j * 8], bh1, bl1);
+            mma3(acc[j], ah, al, bh0, bh1, bl0, bl1);
+          }
+        }
+      }
+      // rows g and g + 8: (logit + bs) / temp, softmax over the G columns
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j < nt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = j * 8 + 2 * t + h;
+            const bool in = c < G;
+            acc[j][h] = in ? (acc[j][h] + sbs[c]) * rtemp : -INFINITY;
+            acc[j][2 + h] = in ? (acc[j][2 + h] + sbs[c]) * rtemp : -INFINITY;
+            mx0 = fmaxf(mx0, acc[j][h]);
+            mx1 = fmaxf(mx1, acc[j][2 + h]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 1; q <= 2; q <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, q));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, q));
+      }
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j < nt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            acc[j][h] = expf(acc[j][h] - mx0);
+            acc[j][2 + h] = expf(acc[j][2 + h] - mx1);
+            s0 += acc[j][h];
+            s1 += acc[j][2 + h];
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 1; q <= 2; q <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, q);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, q);
+      }
+      s0 = 1.f / s0;
+      s1 = 1.f / s1;
+      // the weights go over the warp's own X rows: every lane has read them
+      __syncwarp();
+      const bool ok0 = warp * 16 + g < nv, ok1 = warp * 16 + g + 8 < nv;
+      float* w0 = reinterpret_cast<float*>(region) + g * L.sw;
+      float* w1 = w0 + 8 * L.sw;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j < nt) {
+          const int c = j * 8 + 2 * t;
+          *reinterpret_cast<float2*>(w0 + c) =
+              ok0 ? make_float2(acc[j][0] * s0, acc[j][1] * s0)
+                  : make_float2(0.f, 0.f);
+          *reinterpret_cast<float2*>(w1 + c) =
+              ok1 ? make_float2(acc[j][2] * s1, acc[j][3] * s1)
+                  : make_float2(0.f, 0.f);
+        }
+      }
+    }
+    __syncthreads();  // the weight tile is complete
+
+    // 2. [num | den] += W^T . [F | 1] over the tile's valid points
+    float acc2[ACC][4];
+#pragma unroll
+    for (int j = 0; j < ACC; ++j)
+      acc2[j][0] = acc2[j][1] = acc2[j][2] = acc2[j][3] = 0.f;
+    const S* fb = f_at(s);
+    const int nks = (nv + 7) >> 3;
+    for (int ks = kg; ks < nks; ks += L.kw) {
+      const int p0 = ks * 8 + t, p1 = p0 + 4;
+      const float* w0 = reinterpret_cast<const float*>(
+                            xw + (p0 >> 4) * L.region) +
+                        (p0 & 15) * L.sw + g;
+      const float* w1 = reinterpret_cast<const float*>(
+                            xw + (p1 >> 4) * L.region) +
+                        (p1 & 15) * L.sw + g;
+      const S* f0 = fb + p0 * L.sf + g;
+      const S* f1 = fb + p1 * L.sf + g;
+      int m = m_first, n = n_first, m_have = -1;
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int j = 0; j < ACC; ++j) {
+        if (j < o_count) {
+          if (m != m_have) {
+            split(w0[m * 16], ah[0], al[0]);
+            split(w0[m * 16 + 8], ah[1], al[1]);
+            split(w1[m * 16], ah[2], al[2]);
+            split(w1[m * 16 + 8], ah[3], al[3]);
+            m_have = m;
+          }
+          uint32_t bh0, bl0, bh1, bl1;
+          split(cvt<float>(f0[n * 8]), bh0, bl0);
+          split(cvt<float>(f1[n * 8]), bh1, bl1);
+          mma3(acc2[j], ah, al, bh0, bh1, bl0, bl1);
+          if (++n == L.NT2) {
+            n = 0;
+            ++m;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < ACC; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sum[j][q] += acc2[j][q];
+  }
+
+  float* out = part + (static_cast<size_t>(bh) * gridDim.x + chunk) * G *
+                          (D + 1);
+  if (L.kw == 1) {
+    int m = m_first, n = n_first;
+#pragma unroll
+    for (int j = 0; j < ACC; ++j) {
+      if (j < o_count) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int slice = m * 16 + g + 8 * h;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int col = n * 8 + 2 * t + q;
+            if (slice < G && col <= D)
+              out[slice * (D + 1) + col] = sum[j][2 * h + q];
+          }
+        }
+        if (++n == L.NT2) {
+          n = 0;
+          ++m;
+        }
+      }
+    }
+    return;
+  }
+  // the groups' sums, (kw, n_out, 32 lanes, 4) over the stages, added in
+  // group order
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem + L.off_stage);
+#pragma unroll
+  for (int j = 0; j < ACC; ++j)
+    if (j < o_count)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        red[((kg * n_out + o_first + j) * 32 + lane) * 4 + q] = sum[j][q];
+  __syncthreads();
+  for (int e = tid; e < n_out * 128; e += kThreads) {
+    float v = 0.f;
+    for (int k = 0; k < L.kw; ++k) v += red[k * n_out * 128 + e];
+    const int o = e >> 7, ln = (e >> 2) & 31, q = e & 3;
+    const int m = o / L.NT2, n = o - m * L.NT2;
+    const int slice = m * 16 + (ln >> 2) + 8 * (q >> 1);
+    const int col = n * 8 + 2 * (ln & 3) + (q & 1);
+    if (slice < G && col <= D) out[slice * (D + 1) + col] = v;
+  }
+}
+
+template <typename S>
+using PoolKernel = void (*)(const S*, const S*, const S*, const S*,
+                            const S*, int, int, int, int, int,
+                            const PoolLayout, float*);
+
+template <typename S>
+PoolKernel<S> pool_kernel(int G) {
+  if (G <= 32) return slice_pool_kernel<S, 32>;
+  if (G <= 64) return slice_pool_kernel<S, 64>;
+  return slice_pool_kernel<S, 128>;
+}
+
+// ---------------------------------------------------------------------
+// SIMT kernels: slice_pool in float64, slice_deslice in every type
+
+constexpr int kSimtThreads = 128;
+constexpr int kSimtAcc = 16;  // slice_pool float64: sums per thread
+constexpr int kSlab = kSimtThreads * kSimtAcc;
 
 __device__ __forceinline__ float texp(float x) { return expf(x); }
 __device__ __forceinline__ double texp(double x) { return exp(x); }
 
 // Copies rows [0, nv) of a (rows, D) run of global memory into shared rows
-// of stride D + 1.
-template <typename T>
-__device__ void load_rows(const T* __restrict__ src, int nv, int D,
+// of stride D + 1, in the math type.
+template <typename T, typename S>
+__device__ void load_rows(const S* __restrict__ src, int nv, int D,
                           T* __restrict__ dst) {
-  for (int i = threadIdx.x; i < nv * D; i += kThreads) {
+  for (int i = threadIdx.x; i < nv * D; i += kSimtThreads) {
     const int r = i / D;
-    dst[r * (D + 1) + (i - r * D)] = __ldg(&src[i]);
+    dst[r * (D + 1) + (i - r * D)] = cvt<T>(src[i]);
   }
 }
 
-template <typename T>
-__device__ void load_flat(const T* __restrict__ src, int n,
+template <typename T, typename S>
+__device__ void load_flat(const S* __restrict__ src, int n,
                           T* __restrict__ dst) {
-  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = __ldg(&src[i]);
+  for (int i = threadIdx.x; i < n; i += kSimtThreads) dst[i] = cvt<T>(src[i]);
 }
 
 // Softmax weights of the tile's nv points: row t of sw (stride G + 1) from
 // row t of sx (stride D + 1). The expressions of jax.nn.softmax: logits
-// (x . ws + bs) / temp, minus their max, exp, divided by the sum. Ends with
-// a barrier.
-template <typename T>
+// (x . ws + bs) / temp, minus their max, exp, divided by the sum. ws is
+// staged in shared memory (W = T) or read from global memory (W = S). Ends
+// with a barrier.
+template <typename T, typename W>
 __device__ void tile_weights(const T* __restrict__ sx,
-                             const T* __restrict__ sws,
+                             const W* __restrict__ ws,
                              const T* __restrict__ sbs, T temp, int nv, int D,
                              int G, T* __restrict__ sw) {
   const int t = threadIdx.x;
@@ -90,7 +615,7 @@ __device__ void tile_weights(const T* __restrict__ sx,
     T mx = T(0);
     for (int g = 0; g < G; ++g) {
       T acc = T(0);
-      for (int d = 0; d < D; ++d) acc += x[d] * sws[d * G + g];
+      for (int d = 0; d < D; ++d) acc += x[d] * cvt<T>(ws[d * G + g]);
       const T l = (acc + sbs[g]) / temp;
       row[g] = l;
       if (g == 0 || l > mx) mx = l;
@@ -106,30 +631,50 @@ __device__ void tile_weights(const T* __restrict__ sx,
   __syncthreads();
 }
 
+// P and whether ws (and, for slice_deslice, tok) are staged in shared
+// memory: staged where they fit beside tiles of P >= 16 points.
+struct SimtPlan {
+  int P;
+  int staged;
+  size_t bytes;
+};
+
+SimtPlan simt_plan(int D, int G, size_t tsize, bool deslice) {
+  const int p_max = tsize == 8 ? 64 : 128;
+  for (int staged = 1; staged >= 0; --staged) {
+    const size_t fixed = G + (staged ? (deslice ? 2 : 1) * D * G : 0);
+    for (int P = p_max; P >= 16; P /= 2) {
+      const size_t tiles = (deslice ? 1 : 2) * P * (D + 1) + P * (G + 1);
+      const size_t bytes = tsize * (fixed + tiles);
+      if (bytes <= kSmemMax) return SimtPlan{P, staged, bytes};
+    }
+  }
+  return SimtPlan{0, 0, 0};
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-slice_pool_kernel(const T* __restrict__ fx, const T* __restrict__ xm,
-                  const T* __restrict__ ws, const T* __restrict__ bs,
-                  const T* __restrict__ temp, int N, int D, int G,
-                  int tiles_per_chunk, T* __restrict__ part) {
-  constexpr int P = Tile<T>::P;
+__global__ void __launch_bounds__(kSimtThreads)
+slice_pool_simt_kernel(const T* __restrict__ fx, const T* __restrict__ xm,
+                       const T* __restrict__ ws, const T* __restrict__ bs,
+                       const T* __restrict__ temp, int N, int D, int G, int P,
+                       int staged, int tiles_per_chunk, T* __restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sws = reinterpret_cast<T*>(smem_raw);  // (D, G)
-  T* sbs = sws + D * G;                     // (G)
+  T* sws = reinterpret_cast<T*>(smem_raw);  // (D, G) if staged
+  T* sbs = sws + (staged ? D * G : 0);      // (G)
   T* sx = sbs + G;                          // (P, D + 1)
   T* sf = sx + P * (D + 1);                 // (P, D + 1), column D = 1
   T* sw = sf + P * (D + 1);                 // (P, G + 1)
-  const int bh = blockIdx.y, chunk = blockIdx.x;
+  const int bh = blockIdx.y, chunk = blockIdx.x, o0 = blockIdx.z * kSlab;
   const int GD1 = G * (D + 1);
-  load_flat(ws, D * G, sws);
+  if (staged) load_flat(ws, D * G, sws);
   load_flat(bs, G, sbs);
-  for (int r = threadIdx.x; r < P; r += kThreads) sf[r * (D + 1) + D] = T(1);
+  for (int r = threadIdx.x; r < P; r += kSimtThreads) sf[r * (D + 1) + D] = 1;
   const T tb = temp[bh];
   const size_t base = static_cast<size_t>(bh) * N * D;
 
-  T acc[kMaxAcc];
+  T acc[kSimtAcc];
 #pragma unroll
-  for (int k = 0; k < kMaxAcc; ++k) acc[k] = T(0);
+  for (int k = 0; k < kSimtAcc; ++k) acc[k] = T(0);
 
   for (int it = 0; it < tiles_per_chunk; ++it) {
     const int n0 = (chunk * tiles_per_chunk + it) * P;
@@ -139,10 +684,13 @@ slice_pool_kernel(const T* __restrict__ fx, const T* __restrict__ xm,
     load_rows(xm + base + static_cast<size_t>(n0) * D, nv, D, sx);
     load_rows(fx + base + static_cast<size_t>(n0) * D, nv, D, sf);
     __syncthreads();
-    tile_weights(sx, sws, sbs, tb, nv, D, G, sw);
+    if (staged)
+      tile_weights(sx, sws, sbs, tb, nv, D, G, sw);
+    else
+      tile_weights(sx, ws, sbs, tb, nv, D, G, sw);
 #pragma unroll
-    for (int k = 0; k < kMaxAcc; ++k) {
-      const int o = threadIdx.x + k * kThreads;
+    for (int k = 0; k < kSimtAcc; ++k) {
+      const int o = o0 + threadIdx.x + k * kSimtThreads;
       if (o < GD1) {
         const int g = o / (D + 1), d = o - g * (D + 1);
         T s = acc[k];
@@ -154,135 +702,201 @@ slice_pool_kernel(const T* __restrict__ fx, const T* __restrict__ xm,
   }
   T* out = part + (static_cast<size_t>(bh) * gridDim.x + chunk) * GD1;
 #pragma unroll
-  for (int k = 0; k < kMaxAcc; ++k) {
-    const int o = threadIdx.x + k * kThreads;
+  for (int k = 0; k < kSimtAcc; ++k) {
+    const int o = o0 + threadIdx.x + k * kSimtThreads;
     if (o < GD1) out[o] = acc[k];
   }
 }
 
-// Adds the chunks' (G, D + 1) sums of one bh in chunk order.
-template <typename T>
+// Adds the chunks' (G, D + 1) sums of bh = blockIdx.y in chunk order, one
+// thread per sum.
+template <typename S, typename A>
 __global__ void __launch_bounds__(256)
-slice_pool_reduce_kernel(const T* __restrict__ part, int chunks, int D, int G,
-                         T* __restrict__ num, T* __restrict__ den) {
-  const int bh = blockIdx.x, GD1 = G * (D + 1);
-  const T* p = part + static_cast<size_t>(bh) * chunks * GD1;
-  for (int o = threadIdx.x; o < GD1; o += blockDim.x) {
-    T s = T(0);
+slice_pool_reduce_kernel(const A* __restrict__ part, int chunks, int D, int G,
+                         S* __restrict__ num, S* __restrict__ den) {
+  const int bh = blockIdx.y, GD1 = G * (D + 1);
+  const A* p = part + static_cast<size_t>(bh) * chunks * GD1;
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o < GD1) {
+    A s = A(0);
+#pragma unroll 8
     for (int c = 0; c < chunks; ++c) s += p[static_cast<size_t>(c) * GD1 + o];
     const int g = o / (D + 1), d = o - g * (D + 1);
     if (d < D)
-      num[(static_cast<size_t>(bh) * G + g) * D + d] = s;
+      num[(static_cast<size_t>(bh) * G + g) * D + d] = cvt<S>(s);
     else
-      den[static_cast<size_t>(bh) * G + g] = s;
+      den[static_cast<size_t>(bh) * G + g] = cvt<S>(s);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-slice_deslice_kernel(const T* __restrict__ xm, const T* __restrict__ tok,
-                     const T* __restrict__ ws, const T* __restrict__ bs,
-                     const T* __restrict__ temp, int N, int D, int G,
-                     T* __restrict__ out) {
-  constexpr int P = Tile<T>::P;
+// out[n, :] = sum_g w[n, g] tok[g, :] for the tile's points; tok staged
+// (V = T) or in global memory (V = S).
+template <typename T, typename S, typename V>
+__device__ void tile_broadcast(const T* __restrict__ sw,
+                               const V* __restrict__ tok, int nv, int D,
+                               int G, S* __restrict__ out) {
+  for (int i = threadIdx.x; i < nv * D; i += kSimtThreads) {
+    const int n = i / D, d = i - n * D;
+    const T* w = sw + n * (G + 1);
+    T s = T(0);
+    for (int g = 0; g < G; ++g) s += w[g] * cvt<T>(tok[g * D + d]);
+    out[i] = cvt<S>(s);
+  }
+}
+
+template <typename S>
+__global__ void __launch_bounds__(kSimtThreads)
+slice_deslice_kernel(const S* __restrict__ xm, const S* __restrict__ tok,
+                     const S* __restrict__ ws, const S* __restrict__ bs,
+                     const S* __restrict__ temp, int N, int D, int G, int P,
+                     int staged, S* __restrict__ out) {
+  using T = typename Math<S>::T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sws = reinterpret_cast<T*>(smem_raw);  // (D, G)
-  T* sbs = sws + D * G;                     // (G)
-  T* stok = sbs + G;                        // (G, D)
-  T* sx = stok + G * D;                     // (P, D + 1)
+  T* sws = reinterpret_cast<T*>(smem_raw);  // (D, G) if staged
+  T* stok = sws + (staged ? D * G : 0);     // (G, D) if staged
+  T* sbs = stok + (staged ? G * D : 0);     // (G)
+  T* sx = sbs + G;                          // (P, D + 1)
   T* sw = sx + P * (D + 1);                 // (P, G + 1)
   const int bh = blockIdx.y, n0 = blockIdx.x * P;
   const int nv = min(P, N - n0);
   const size_t base = (static_cast<size_t>(bh) * N + n0) * D;
-  load_flat(ws, D * G, sws);
+  const S* tk = tok + static_cast<size_t>(bh) * G * D;
+  if (staged) {
+    load_flat(ws, D * G, sws);
+    load_flat(tk, G * D, stok);
+  }
   load_flat(bs, G, sbs);
-  load_flat(tok + static_cast<size_t>(bh) * G * D, G * D, stok);
   load_rows(xm + base, nv, D, sx);
   __syncthreads();
-  tile_weights(sx, sws, sbs, temp[bh], nv, D, G, sw);
-  for (int i = threadIdx.x; i < nv * D; i += kThreads) {
-    const int n = i / D, d = i - n * D;
-    const T* w = sw + n * (G + 1);
-    T s = T(0);
-    for (int g = 0; g < G; ++g) s += w[g] * stok[g * D + d];
-    out[base + i] = s;
+  const T tb = cvt<T>(temp[bh]);
+  if (staged) {
+    tile_weights(sx, sws, sbs, tb, nv, D, G, sw);
+    tile_broadcast(sw, stok, nv, D, G, out + base);
+  } else {
+    tile_weights(sx, ws, sbs, tb, nv, D, G, sw);
+    tile_broadcast(sw, tk, nv, D, G, out + base);
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
+// ---------------------------------------------------------------------
+// host side
 
-bool dims_ok(int BH, int N, int D, int G) {
-  return BH >= 1 && BH <= 65535 && N >= 1 && D >= 1 && G >= 1 &&
-         D <= kMaxDim && G <= kMaxDim;
-}
-
-template <typename T>
-int slice_pool(const T* fx, const T* xm, const T* ws, const T* bs,
-               const T* temp, T* part, T* num, T* den, int BH, int N, int D,
-               int G, int chunks, int tiles_per_chunk, void* stream_ptr) {
-  constexpr int P = Tile<T>::P;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long tiles = (static_cast<long long>(N) + P - 1) / P;
-  // every chunk holds at least one tile, and the chunks cover them all
-  if (!dims_ok(BH, N, D, G) || chunks < 1 || tiles_per_chunk < 1 ||
-      static_cast<long long>(chunks) * tiles_per_chunk < tiles ||
-      static_cast<long long>(chunks - 1) * tiles_per_chunk >= tiles)
-    return cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(T) * (D * G + G + 2 * P * (D + 1) + P * (G + 1));
-  cudaError_t e = allow_smem(slice_pool_kernel<T>, smem);
+// chunks x tiles_per_chunk of slice_pool for these shapes (one wave)
+template <typename S>
+int slice_pool_plan(int BH, int N, int D, int G, int* chunks,
+                    int* tiles_per_chunk) {
+  if (!dims_ok(BH, N, D, G)) return cudaErrorInvalidValue;
+  int slots = 0;
+  long long tiles = 0;
+  int rows = BH;
+  cudaError_t e;
+  if constexpr (sizeof(S) == 8) {
+    const SimtPlan sp = simt_plan(D, G, sizeof(S), false);
+    if (!sp.P) return cudaErrorInvalidValue;
+    e = allow_smem(slice_pool_simt_kernel<S>, sp.bytes);
+    if (e == cudaSuccess)
+      e = resident_slots(slice_pool_simt_kernel<S>, kSimtThreads, sp.bytes,
+                         &slots);
+    tiles = (N + sp.P - 1) / sp.P;
+    rows *= (G * (D + 1) + kSlab - 1) / kSlab;
+  } else {
+    const PoolLayout L = pool_layout(D, G, sizeof(S));
+    if (!L.P) return cudaErrorInvalidValue;
+    e = allow_smem(pool_kernel<S>(G), L.bytes);
+    if (e == cudaSuccess)
+      e = resident_slots(pool_kernel<S>(G), kThreads, L.bytes, &slots);
+    tiles = (N + L.P - 1) / L.P;
+  }
   if (e != cudaSuccess) return e;
-  slice_pool_kernel<T><<<dim3(chunks, BH), kThreads, smem, stream>>>(
-      fx, xm, ws, bs, temp, N, D, G, tiles_per_chunk, part);
+  split_chunks(tiles, slots, rows, chunks, tiles_per_chunk);
+  return cudaSuccess;
+}
+
+template <typename S>
+int slice_pool(const S* fx, const S* xm, const S* ws, const S* bs,
+               const S* temp, void* part, S* num, S* den, int BH, int N,
+               int D, int G, int chunks, int tiles_per_chunk,
+               void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (!dims_ok(BH, N, D, G)) return cudaErrorInvalidValue;
+  using A = typename Math<S>::T;
+  cudaError_t e;
+  if constexpr (sizeof(S) == 8) {
+    const SimtPlan sp = simt_plan(D, G, sizeof(S), false);
+    if (!sp.P || !chunks_ok((N + sp.P - 1) / sp.P, chunks, tiles_per_chunk))
+      return cudaErrorInvalidValue;
+    e = allow_smem(slice_pool_simt_kernel<S>, sp.bytes);
+    if (e != cudaSuccess) return e;
+    const int slabs = (G * (D + 1) + kSlab - 1) / kSlab;
+    slice_pool_simt_kernel<S>
+        <<<dim3(chunks, BH, slabs), kSimtThreads, sp.bytes, stream>>>(
+            fx, xm, ws, bs, temp, N, D, G, sp.P, sp.staged, tiles_per_chunk,
+            static_cast<S*>(part));
+  } else {
+    const PoolLayout L = pool_layout(D, G, sizeof(S));
+    if (!L.P || !chunks_ok((N + L.P - 1) / L.P, chunks, tiles_per_chunk))
+      return cudaErrorInvalidValue;
+    const PoolKernel<S> kernel = pool_kernel<S>(G);
+    e = allow_smem(kernel, L.bytes);
+    if (e != cudaSuccess) return e;
+    const bool vec =
+        D * sizeof(S) % 16 == 0 &&
+        (reinterpret_cast<uintptr_t>(fx) | reinterpret_cast<uintptr_t>(xm)) %
+                16 == 0;
+    kernel<<<dim3(chunks, BH), kThreads, L.bytes, stream>>>(
+        fx, xm, ws, bs, temp, N, D, G, tiles_per_chunk, vec, L,
+        static_cast<float*>(part));
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  slice_pool_reduce_kernel<T><<<BH, 256, 0, stream>>>(part, chunks, D, G,
-                                                      num, den);
+  slice_pool_reduce_kernel<S, A>
+      <<<dim3((G * (D + 1) + 255) / 256, BH), 256, 0, stream>>>(
+          static_cast<const A*>(part), chunks, D, G, num, den);
   return cudaGetLastError();
 }
 
-template <typename T>
-int slice_deslice(const T* xm, const T* tok, const T* ws, const T* bs,
-                  const T* temp, T* out, int BH, int N, int D, int G,
+template <typename S>
+int slice_deslice(const S* xm, const S* tok, const S* ws, const S* bs,
+                  const S* temp, S* out, int BH, int N, int D, int G,
                   void* stream_ptr) {
-  constexpr int P = Tile<T>::P;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!dims_ok(BH, N, D, G)) return cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(T) * (D * G + G + G * D + P * (D + 1) + P * (G + 1));
-  cudaError_t e = allow_smem(slice_deslice_kernel<T>, smem);
+  const SimtPlan sp = simt_plan(D, G, sizeof(typename Math<S>::T), true);
+  if (!sp.P) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(slice_deslice_kernel<S>, sp.bytes);
   if (e != cudaSuccess) return e;
-  const int tiles = (N + P - 1) / P;
-  slice_deslice_kernel<T><<<dim3(tiles, BH), kThreads, smem, stream>>>(
-      xm, tok, ws, bs, temp, N, D, G, out);
+  const int tiles = (N + sp.P - 1) / sp.P;
+  slice_deslice_kernel<S><<<dim3(tiles, BH), kSimtThreads, sp.bytes, stream>>>(
+      xm, tok, ws, bs, temp, N, D, G, sp.P, sp.staged, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// fx, xm (BH, N, D); ws (D, G); bs (G); temp (BH); part scratch of
-// BH * chunks * G * (D + 1) values; num (BH, G, D); den (BH, G). The chunks
-// split the ceil(N / P) tiles of a bh, tiles_per_chunk each (the last one
-// may hold fewer), P = Tile<T>::P.
-#define PMC_SLICE_ENTRIES(SUFFIX, T)                                          \
+// fx, xm (BH, N, D); ws (D, G); bs (G); temp (BH), all of one type; part
+// scratch of BH * chunks * G * (D + 1) values (float64 for float64, else
+// float32); num (BH, G, D); den (BH, G). chunks and tiles_per_chunk come
+// from pmc_slice_pool_plan_* for the same shapes.
+#define PMC_SLICE_ENTRIES(SUFFIX, S)                                          \
+  extern "C" int pmc_slice_pool_plan_##SUFFIX(int BH, int N, int D, int G,    \
+                                              int* chunks,                    \
+                                              int* tiles_per_chunk) {         \
+    return slice_pool_plan<S>(BH, N, D, G, chunks, tiles_per_chunk);          \
+  }                                                                           \
   extern "C" int pmc_slice_pool_##SUFFIX(                                     \
-      const T* fx, const T* xm, const T* ws, const T* bs, const T* temp,      \
-      T* part, T* num, T* den, int BH, int N, int D, int G, int chunks,       \
+      const S* fx, const S* xm, const S* ws, const S* bs, const S* temp,      \
+      void* part, S* num, S* den, int BH, int N, int D, int G, int chunks,    \
       int tiles_per_chunk, void* stream) {                                    \
-    return slice_pool<T>(fx, xm, ws, bs, temp, part, num, den, BH, N, D, G,   \
+    return slice_pool<S>(fx, xm, ws, bs, temp, part, num, den, BH, N, D, G,   \
                          chunks, tiles_per_chunk, stream);                    \
   }                                                                           \
   extern "C" int pmc_slice_deslice_##SUFFIX(                                  \
-      const T* xm, const T* tok, const T* ws, const T* bs, const T* temp,     \
-      T* out, int BH, int N, int D, int G, void* stream) {                    \
-    return slice_deslice<T>(xm, tok, ws, bs, temp, out, BH, N, D, G, stream); \
+      const S* xm, const S* tok, const S* ws, const S* bs, const S* temp,     \
+      S* out, int BH, int N, int D, int G, void* stream) {                    \
+    return slice_deslice<S>(xm, tok, ws, bs, temp, out, BH, N, D, G, stream); \
   }
 
 PMC_SLICE_ENTRIES(f32, float)
 PMC_SLICE_ENTRIES(f64, double)
+PMC_SLICE_ENTRIES(bf16, __nv_bfloat16)
+PMC_SLICE_ENTRIES(f16, __half)

@@ -7,11 +7,13 @@ key by joining its parts with dots (``utils/flax_convert.py``).
 
 Initialization reproduces torch's Conv2d defaults (U(-1/√fan_in,
 1/√fan_in) for weight and bias), drawn from a seeded numpy generator so
-a model is the same on every device.
+a model is the same on every device. Convolutions on the card run in full
+float32 whatever PyTorch's TF32 flag says (:func:`float32_convs`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -43,6 +45,22 @@ def _uniform(rng: np.random.Generator, shape, fan_in: int) -> nn.Parameter:
     bound = 1.0 / math.sqrt(fan_in)
     return nn.Parameter(torch.as_tensor(
         rng.uniform(-bound, bound, size=shape), dtype=torch.float32))
+
+
+@contextlib.contextmanager
+def float32_convs(x: torch.Tensor):
+    """Inside the block, cuDNN convolutions of CUDA tensors run in full
+    float32 even where ``torch.backends.cudnn.allow_tf32`` is True
+    (PyTorch's default: TF32 keeps ~3 digits); the flag is restored."""
+    cudnn = torch.backends.cudnn
+    if not (x.is_cuda and cudnn.allow_tf32):
+        yield
+        return
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = True
 
 
 # torch padding_mode → F.pad mode
@@ -78,7 +96,8 @@ class Conv2dTorch(nn.Module):
     def forward(self, x):
         if any(self.pad):
             x = F.pad(x, self.pad, mode=self.pad_mode)
-        return F.conv2d(x, self.weight, self.bias)
+        with float32_convs(x):
+            return F.conv2d(x, self.weight, self.bias)
 
 
 # Weight classes of the learned-boundary conv, in the order the kernels
@@ -107,15 +126,16 @@ def blc_conv2d(x, w9: Sequence[torch.Tensor], bias):
     """
     (w_bl, w_b, w_br, w_l, w_c, w_r, w_tl, w_t, w_tr) = w9
     p = blc_slab(w_c.shape[-1])
-    top_left = F.conv2d(x[:, :, :p, :p], w_tl)
-    bottom_left = F.conv2d(x[:, :, -p:, :p], w_bl)
-    top_right = F.conv2d(x[:, :, :p, -p:], w_tr)
-    bottom_right = F.conv2d(x[:, :, -p:, -p:], w_br)
-    top = F.conv2d(x[:, :, :p, :], w_t)
-    bottom = F.conv2d(x[:, :, -p:, :], w_b)
-    left = F.conv2d(x[:, :, :, :p], w_l)
-    right = F.conv2d(x[:, :, :, -p:], w_r)
-    inner = F.conv2d(x, w_c)
+    with float32_convs(x):
+        top_left = F.conv2d(x[:, :, :p, :p], w_tl)
+        bottom_left = F.conv2d(x[:, :, -p:, :p], w_bl)
+        top_right = F.conv2d(x[:, :, :p, -p:], w_tr)
+        bottom_right = F.conv2d(x[:, :, -p:, -p:], w_br)
+        top = F.conv2d(x[:, :, :p, :], w_t)
+        bottom = F.conv2d(x[:, :, -p:, :], w_b)
+        left = F.conv2d(x[:, :, :, :p], w_l)
+        right = F.conv2d(x[:, :, :, -p:], w_r)
+        inner = F.conv2d(x, w_c)
 
     mid = torch.cat([left, inner, right], dim=3)
     top = torch.cat([top_left, top, top_right], dim=3)

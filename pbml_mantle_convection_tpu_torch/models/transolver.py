@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ..ops.curl import curl_head_valid
 from ..ops.slice_attention import slice_attention_fused
-from .layers import Conv2dTorch, get_activation
+from .layers import Conv2dTorch, float32_convs, get_activation
 
 
 def trunc_normal(rng: np.random.Generator, shape, std: float = 0.02):
@@ -181,8 +181,9 @@ class PhysicsAttentionStructuredMesh3D(_PhysicsAttention):
         lo = (self.kernel - 1) // 2
         hi = self.kernel - 1 - lo
         vol = F.pad(vol, (lo, hi) * 3)
-        return F.conv3d(vol, getattr(self, f"{name}_kernel"),
-                        getattr(self, f"{name}_bias"))
+        with float32_convs(vol):
+            return F.conv3d(vol, getattr(self, f"{name}_kernel"),
+                            getattr(self, f"{name}_bias"))
 
     def project(self, x):
         B, N, C = x.shape

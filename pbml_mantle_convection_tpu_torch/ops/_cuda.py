@@ -35,6 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_IP = ctypes.POINTER(ctypes.c_int)
+SLICE_TYPES = ("f32", "f64", "bf16", "f16")
 # C entry points: name → argument types (every one returns a cudaError_t)
 _SIGNATURES = {
     "pmc_layer_stacks": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -49,12 +51,15 @@ _SIGNATURES = {
     **{f"pmc_advect_{t}": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                            _P, _I, _I, _I, _D, _D, _D, _I, _I, _P]
        for t in ("f32", "f64")},
-    # float32 and float64 instances of csrc/slice_attention.cu
+    # the float32, float64, bfloat16 and float16 instances of
+    # csrc/slice_attention.cu
+    **{f"pmc_slice_pool_plan_{t}": [_I, _I, _I, _I, _IP, _IP]
+       for t in SLICE_TYPES},
     **{f"pmc_slice_pool_{t}": [_P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _P]
-       for t in ("f32", "f64")},
+       for t in SLICE_TYPES},
     **{f"pmc_slice_deslice_{t}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-       for t in ("f32", "f64")},
+       for t in SLICE_TYPES},
 }
 
 

@@ -14,9 +14,11 @@ _pool_kernel`` and ``::_deslice_kernel``; this module is the port of
    (:func:`slice_deslice`).
 
 On CUDA tensors steps 1-2 and 1+4 are the two hand-written kernels of
-``csrc/slice_attention.cu`` (float32 or float64; D, G ≤ 64), which
-recompute the weights instead of storing the (B, heads, N, G) tensor; on
-CPU tensors the two wrappers run their plain versions. The einsum
+``csrc/slice_attention.cu`` (D, G ≤ 128; float32, float64, bfloat16 or
+float16 storage, 16-bit values loaded into float32 math and the results
+stored in the input type, as the Pallas kernel does), which recompute the
+weights instead of storing the (B, heads, N, G) tensor; on CPU tensors the
+two wrappers run their plain versions, with the same math types. The einsum
 formulation of the JAX model (``models/transolver.py::_slice_attention``)
 is :func:`slice_attention_plain`. What bounds the kernels (bytes at the
 serving shape) and their design are written at the top of the CUDA
@@ -29,14 +31,16 @@ where the model clamps it.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from . import _cuda
 
-_ENTRY = {torch.float32: "f32", torch.float64: "f64"}
-MAX_DIM = 64                    # csrc/slice_attention.cu kMaxDim (D and G)
-_TILE = {torch.float32: 128, torch.float64: 64}   # points per tile (P)
-_TARGET_BLOCKS = 528            # slice_pool blocks in flight: 4 per SM
+_ENTRY = {torch.float32: "f32", torch.float64: "f64",
+          torch.bfloat16: "bf16", torch.float16: "f16"}
+MAX_DIM = 128                   # csrc/slice_attention.cu kMaxDim (D and G)
 
 
 def slice_weights(x_mid, ws, bs, temperature):
@@ -60,21 +64,31 @@ def slice_attention_plain(fx_mid, x_mid, ws, bs, temperature, wq, wk, wv):
     return torch.einsum("bhgc,bhng->bhnc", out_tok, w)
 
 
+def _math(*ts):
+    """The kernels' math type: float64 for float64, else float32."""
+    wide = torch.float64 if ts[0].dtype == torch.float64 else torch.float32
+    return [t.to(wide) for t in ts]
+
+
 def slice_pool_plain(fx, xm, ws, bs, temp):
     """Plain version of :func:`slice_pool`."""
+    dtype = xm.dtype
+    fx, xm, ws, bs, temp = _math(fx, xm, ws, bs, temp)
     w = slice_weights(xm, ws, bs, temp[:, None, None])
-    return w.transpose(1, 2) @ fx, w.sum(dim=1)
+    return (w.transpose(1, 2) @ fx).to(dtype), w.sum(dim=1).to(dtype)
 
 
 def slice_deslice_plain(xm, tok, ws, bs, temp):
     """Plain version of :func:`slice_deslice`."""
-    return slice_weights(xm, ws, bs, temp[:, None, None]) @ tok
+    dtype = xm.dtype
+    xm, tok, ws, bs, temp = _math(xm, tok, ws, bs, temp)
+    return (slice_weights(xm, ws, bs, temp[:, None, None]) @ tok).to(dtype)
 
 
 def _check(name, xm, ws, bs, temp):
     if xm.dtype not in _ENTRY:
-        raise TypeError(f"{name}: the kernel takes float32 or float64, got "
-                        f"{xm.dtype}")
+        raise TypeError(f"{name}: the kernel takes float32, float64, "
+                        f"bfloat16 or float16, got {xm.dtype}")
     BH, N, D = xm.shape
     G = ws.shape[-1]
     if not (1 <= D <= MAX_DIM and 1 <= G <= MAX_DIM):
@@ -90,6 +104,18 @@ def _check(name, xm, ws, bs, temp):
     return BH, N, D, G
 
 
+@functools.lru_cache(maxsize=None)
+def _pool_plan(entry, device, BH, N, D, G):
+    """(chunks, tiles per chunk) of a slice_pool launch: one wave of
+    blocks on the card, from its SM count and the kernel's occupancy."""
+    chunks, per_chunk = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = getattr(_cuda.library(), f"pmc_slice_pool_plan_{entry}")(
+            BH, N, D, G, ctypes.byref(chunks), ctypes.byref(per_chunk))
+    _cuda.raise_on_error(err, "slice_pool")
+    return chunks.value, per_chunk.value
+
+
 def slice_pool(fx, xm, ws, bs, temp):
     """fx, xm (BH, N, D); ws (D, G); bs (G,); temp (BH,) → num (BH, G, D),
     den (BH, G): the softmax-weighted sums of fx and of the weights."""
@@ -97,11 +123,10 @@ def slice_pool(fx, xm, ws, bs, temp):
         return slice_pool_plain(fx, xm, ws, bs, temp)
     BH, N, D, G = _check("slice_pool", xm, ws, bs, temp)
     _cuda.check_cuda("slice_pool fx", fx, xm.dtype, xm.shape)
-    tiles = -(-N // _TILE[xm.dtype])
-    chunks = min(tiles, -(-_TARGET_BLOCKS // BH))
-    per_chunk = -(-tiles // chunks)
-    chunks = -(-tiles // per_chunk)
-    part = torch.empty(BH * chunks * G * (D + 1), dtype=xm.dtype,
+    chunks, per_chunk = _pool_plan(_ENTRY[xm.dtype], xm.device, BH, N, D,
+                                   G)
+    wide = torch.float64 if xm.dtype == torch.float64 else torch.float32
+    part = torch.empty(BH * chunks * G * (D + 1), dtype=wide,
                        device=xm.device)
     num = torch.empty(BH, G, D, dtype=xm.dtype, device=xm.device)
     den = torch.empty(BH, G, dtype=xm.dtype, device=xm.device)

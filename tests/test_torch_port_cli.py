@@ -1,13 +1,22 @@
 """The port's benchmark CLI on the CPU (``--device cpu``) at small grids:
 inference of the Transolvers and NewFluidNet, the NewFluidNet rollout,
-the JAX CLI's metric names, and the choices that are not ported yet."""
+the JAX CLI's metric names and inputs (and the first rollout step's dt
+from them), TF32 off, and the choices that are not ported yet."""
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
-from pbml_mantle_convection_tpu_torch.cli.benchmark import main
+from pbml_mantle_convection_tpu_torch.cli.benchmark import (
+    inference_input, initial_temperature, main)
+from pbml_mantle_convection_tpu_torch.constants import SimParams
+from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet
+from pbml_mantle_convection_tpu_torch.models.registry import ModelConfig
+from pbml_mantle_convection_tpu_torch.sim.engine import SimEngine
+from pbml_mantle_convection_tpu_torch.sim.grid import Grid
+from pbml_mantle_convection_tpu_torch.sim.stepper import TimeStepper
 
 
 def _last_json(capsys):
@@ -34,6 +43,7 @@ def test_inference(capsys, argv, metric):
     assert rec["metric"] == metric and rec["unit"] == "ms"
     assert rec["iters"] == 2 and rec["device"] == "cpu"
     assert ms > 0 and rec["value"] == round(ms, 4)
+    assert rec["tf32_conv"] is False and rec["tf32_matmul"] is False
 
 
 def test_rollout(capsys):
@@ -42,6 +52,81 @@ def test_rollout(capsys):
     rec = _last_json(capsys)
     assert rec["metric"] == "rollout_steps_per_s_20x28"
     assert rec["unit"] == "steps/s" and sps > 0
+    assert rec["tf32_conv"] is False and rec["tf32_matmul"] is False
+
+
+@pytest.mark.parametrize("network,H,W", [
+    ("transolver_structured", 16, 24), ("transolver", 8, 12),
+    ("newfluidnet", 20, 28)])
+def test_inputs_are_the_jax_clis(network, H, W):
+    """Inference feeds the JAX CLI's zeros (JAX cli/benchmark.py:79-82) of
+    its shapes, the rollout starts from its noise-free field (:199-200)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from pbml_mantle_convection_tpu.models.registry import (
+        ModelConfig as JConfig)
+    from pbml_mantle_convection_tpu.sim.grid import Grid as JGrid
+    c_i, _ = JConfig(network=network, H=H, W=W).channels
+    assert ModelConfig(network=network, H=H, W=W).channels[0] == c_i
+    ref = (jnp.zeros((1, H * W, c_i), jnp.float32)
+           if "transolver" in network
+           else jnp.zeros((1, H, W, c_i), jnp.float32))
+    x = inference_input(network, H, W, c_i, torch.float32, "cpu")
+    assert x.dtype == torch.float32
+    np.testing.assert_array_equal(x.numpy(), np.asarray(ref))
+
+    jgrid = JGrid(H=H, W=W, aspect=(W - 2) / (H - 2), dtype="float64")
+    T0 = jnp.clip(1.0 - jgrid.yc + 0.05 * jnp.sin(6.28 * jgrid.xc), 0, 1)
+    T = initial_temperature(Grid(H=H, W=W, aspect=(W - 2) / (H - 2)))
+    assert T.shape == (1, H, W)
+    np.testing.assert_allclose(T[0], np.asarray(T0), rtol=1e-15, atol=0)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_first_rollout_dt_matches_the_jax_cli(fused):
+    """One coupled step from each CLI's initial field at 20×28, float64,
+    with the same weights: the port's dt is the JAX engine's (rtol
+    1e-10, the golden rollout's tolerance)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from pbml_mantle_convection_tpu.constants import SimParams as JParams
+    from pbml_mantle_convection_tpu.models import NewFluidNet as JNewFluidNet
+    from pbml_mantle_convection_tpu.sim.engine import SimEngine as JEngine
+    from pbml_mantle_convection_tpu.sim.grid import Grid as JGrid
+    from pbml_mantle_convection_tpu.sim.stepper import (
+        TimeStepper as JStepper)
+    from pbml_mantle_convection_tpu_torch.models.fast_path import (
+        FastNewFluidNet)
+    from pbml_mantle_convection_tpu_torch.utils.flax_convert import (
+        from_jax_params)
+    H, W = 20, 28
+    cfg = dict(levels=2, c_i=7, c_h=8, c_o=1, act_fn="gelu", r_p="learned",
+               loss_type="curl", repeats=1, f=5, p_pred=False)
+    jm = JNewFluidNet(**cfg)
+    w = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, H, W, 7), jnp.float64))
+    # the JAX CLI's rollout set-up (JAX cli/benchmark.py:186-200)
+    jgrid = JGrid(H=H, W=W, aspect=(W - 2) / (H - 2), dtype="float64")
+    pp = JParams(3.0, 1e8, 10.0)
+    jeng = JEngine(grid=jgrid, params=pp, dtype=jnp.float64,
+                   stepper=JStepper(grid=jgrid, params=pp,
+                                    apply_fn=lambda x: jm.apply(w, x),
+                                    net="newfluidnet", cn_max=0.99,
+                                    dtype=jnp.float64))
+    T0 = jnp.clip(1.0 - jgrid.yc + 0.05 * jnp.sin(6.28 * jgrid.xc), 0, 1)
+    js = jax.jit(jeng.step)(jeng.init_state(T0[None]))
+
+    net = NewFluidNet(device="cpu", dtype=torch.float64, **cfg)
+    net.load_state_dict(from_jax_params(jax.tree.map(np.asarray, w)))
+    grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
+    eng = SimEngine(TimeStepper(grid, SimParams(3.0, 1e8, 10.0),
+                                FastNewFluidNet(net, H, W) if fused else net,
+                                cn_max=0.99, dtype=torch.float64,
+                                device="cpu"))
+    ts = eng.step(eng.init_state(initial_temperature(grid)))
+    assert float(js.dt) > 0
+    np.testing.assert_allclose(float(ts.dt), float(js.dt), rtol=1e-10)
+    np.testing.assert_allclose(ts.T.numpy(), np.asarray(js.T), rtol=1e-10,
+                               atol=1e-12)
 
 
 def test_metric_name_matches_the_jax_cli(capsys, monkeypatch):

@@ -4,8 +4,16 @@
   two kernel wrappers' plain versions) against the JAX Pallas kernel in
   interpret mode, at the JAX test's cases, float32: rtol 2e-5, atol 2e-6
   (the tolerance of tests/test_slice_attention.py);
+- the same at D = G = 128 (the kernels' widest) against the Pallas kernel,
+  float32, within 1e-5 of max |ref|: 128-term float32 logits and sums in
+  another order (elementwise up to 3e-5 where |ref| is 11.6);
 - the same against the JAX model's einsum formulation
-  (``models/transolver.py::_slice_attention``) in float64: ≤ 1e-12;
+  (``models/transolver.py::_slice_attention``) in float64: ≤ 1e-12, also
+  at (D, G) = (96, 128) and (128, 128);
+- bfloat16 inputs against the JAX model's bfloat16 einsum within 3e-2 of
+  max |ref| (each side rounds logits, weights and sums to 8 bits at other
+  places: ~1.1e-2 apart), and no further than 1.25 x JAX's own bfloat16
+  error from the float64 result on the same bfloat16 values;
 - the plain versions of the two kernels against direct einsums, float64.
 The CUDA kernels are held against these plain versions on the card by
 tests/test_torch_port_cuda.py.
@@ -54,8 +62,51 @@ def test_port_matches_pallas_interpret_f32(port, N, block_n):
 
 
 @pytest.mark.parametrize("port", sorted(PORT))
+@pytest.mark.parametrize("N,block_n", [(64, 64), (100, 64)])
+def test_port_matches_pallas_interpret_f32_wide(port, N, block_n):
+    args = [a.astype(np.float32) for a in _inputs(1, 2, N, 128, 128)]
+    ref = np.asarray(j_slice_attention_fused(*map(jnp.asarray, args),
+                                             block_n=block_n))
+    out = PORT[port](*map(torch.as_tensor, args))
+    assert out.dtype == torch.float32 and out.shape == (1, 2, N, 128)
+    assert np.abs(out.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def _j_einsum(fx, xm, ws, bs, temp, wq, wk, wv):
+    return np.asarray(j_slice_attention(
+        fx, xm, lambda x: x @ ws + bs, temp, lambda t: t @ wq,
+        lambda t: t @ wk, lambda t: t @ wv, fx.shape[-1] ** -0.5
+    ).astype(jnp.float64))
+
+
+@pytest.mark.parametrize("port", sorted(PORT))
+@pytest.mark.parametrize("shape", [(2, 3, 200, 8, 16), (1, 2, 97, 16, 32)])
+def test_port_bf16_matches_einsum_model_bf16(port, shape):
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in _inputs(*shape, seed=2)]
+    ref = _j_einsum(*jb)
+    out = PORT[port](*(torch.as_tensor(np.asarray(a, np.float32)).bfloat16()
+                       for a in jb))
+    assert out.dtype == torch.bfloat16 and out.shape == shape[:4]
+    assert (np.abs(out.double().numpy() - ref).max()
+            <= 3e-2 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("port", sorted(PORT))
+@pytest.mark.parametrize("shape", [(1, 2, 97, 16, 32), (1, 2, 64, 128, 128)])
+def test_port_bf16_as_close_to_f64_as_jax_bf16(port, shape):
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in _inputs(*shape, seed=2)]
+    exact = [np.asarray(a, np.float64) for a in jb]   # the bfloat16 values
+    truth = _j_einsum(*map(jnp.asarray, exact))
+    scale = np.abs(truth).max()
+    j_err = np.abs(_j_einsum(*jb) - truth).max() / scale
+    out = PORT[port](*(torch.as_tensor(a).bfloat16() for a in exact))
+    assert np.abs(out.double().numpy() - truth).max() / scale <= 1.25 * j_err
+
+
+@pytest.mark.parametrize("port", sorted(PORT))
 @pytest.mark.parametrize("shape", [(2, 3, 200, 8, 16), (1, 2, 97, 16, 32),
-                                   (1, 1, 50, 4, 4)])
+                                   (1, 1, 50, 4, 4), (1, 2, 40, 96, 128),
+                                   (1, 1, 30, 128, 128)])
 def test_port_matches_einsum_model_f64(port, shape):
     fx, xm, ws, bs, temp, wq, wk, wv = _inputs(*shape, seed=1)
     D = shape[3]
