@@ -62,6 +62,18 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// waits until at most n (0 to 3; more counts as 3) of this thread's
+// committed groups are still in flight
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  if (n <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else if (n == 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+}
 
 }  // namespace
 }  // namespace pmc

@@ -150,14 +150,27 @@ class PhysicsAttentionStructuredMesh2D(_PhysicsAttention):
                                          padding="SAME", pad_mode="constant")
         self.in_project_x = Conv2dTorch(dim, inner, kernel, rng,
                                         padding="SAME", pad_mode="constant")
+        # channels-last weights, as the input: else cuDNN copies them into
+        # that format on every call (``to`` and ``load_state_dict`` keep it)
+        for conv in (self.in_project_fx, self.in_project_x):
+            conv.weight.data = conv.weight.data.contiguous(
+                memory_format=torch.channels_last)
+
+    def _conv(self, img, conv):
+        """``conv`` (SAME, zero-padded) with the padding left to the conv
+        itself: no padded copy of the input. The input is a channels-last
+        view, and so is the output, whose heads are then rows of dim_head
+        adjacent values, as the slice kernels read them."""
+        with float32_convs(img):
+            return F.conv2d(img, conv.weight, conv.bias, padding="same")
 
     def project(self, x):
         B, N, C = x.shape
         if N != self.H * self.W:
             raise ValueError(f"expected N = {self.H}·{self.W}, got {N}")
         img = x.reshape(B, self.H, self.W, C).permute(0, 3, 1, 2)
-        return (self.split_heads(self.in_project_fx(img), B, N),
-                self.split_heads(self.in_project_x(img), B, N))
+        return (self.split_heads(self._conv(img, self.in_project_fx), B, N),
+                self.split_heads(self._conv(img, self.in_project_x), B, N))
 
 
 class PhysicsAttentionStructuredMesh3D(_PhysicsAttention):

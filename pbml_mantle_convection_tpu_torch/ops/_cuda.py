@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _D = ctypes.c_double
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -53,12 +54,15 @@ _SIGNATURES = {
        for t in ("f32", "f64")},
     # the float32, float64, bfloat16 and float16 instances of
     # csrc/slice_attention.cu
-    **{f"pmc_slice_pool_plan_{t}": [_I, _I, _I, _I, _IP, _IP]
-       for t in SLICE_TYPES},
+    **{f"pmc_slice_{k}_plan_{t}": [_I, _I, _I, _I, _IP, _IP]
+       for t in SLICE_TYPES for k in ("pool", "deslice")},
     **{f"pmc_slice_pool_{t}": [_P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _P]
+                               _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+                               _I, _I, _I, _I, _P]
        for t in SLICE_TYPES},
-    **{f"pmc_slice_deslice_{t}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    **{f"pmc_slice_deslice_{t}": [_P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+                                  _I, _I, _I, _I, _P]
        for t in SLICE_TYPES},
 }
 

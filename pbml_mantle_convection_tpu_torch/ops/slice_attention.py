@@ -14,15 +14,20 @@ _pool_kernel`` and ``::_deslice_kernel``; this module is the port of
    (:func:`slice_deslice`).
 
 On CUDA tensors steps 1-2 and 1+4 are the two hand-written kernels of
-``csrc/slice_attention.cu`` (D, G ≤ 128; float32, float64, bfloat16 or
-float16 storage, 16-bit values loaded into float32 math and the results
-stored in the input type, as the Pallas kernel does), which recompute the
-weights instead of storing the (B, heads, N, G) tensor; on CPU tensors the
-two wrappers run their plain versions, with the same math types. The einsum
-formulation of the JAX model (``models/transolver.py::_slice_attention``)
-is :func:`slice_attention_plain`. What bounds the kernels (bytes at the
-serving shape) and their design are written at the top of the CUDA
-source.
+``csrc/slice_attention.cu`` (float32, float64, bfloat16 or float16
+storage, 16-bit values loaded into float32 math and the results stored in
+the input type, as the Pallas kernel does), which recompute the weights
+instead of storing the (B, heads, N, G) tensor: on the tensor cores for
+16- and 32-bit storage at D, G ≤ 128, else SIMT, for any D and G whose
+16-point tiles fit in shared memory (the CUDA plan decides, :func:`_plan`).
+They read x_mid and fx as (B, heads, N, D) views with any strides but a
+channel stride of 1, so the projections' own outputs go in without a copy,
+and :func:`slice_deslice` writes the (B, N, heads·D) rows that the output
+projection reads. On CPU tensors the two wrappers run their plain versions,
+with the same math types. The einsum formulation of the JAX model
+(``models/transolver.py::_slice_attention``) is
+:func:`slice_attention_plain`. What bounds the kernels (bytes at the
+serving shape) and their design are written at the top of the CUDA source.
 
 Weights keep the JAX orientation: ws (D, G), bs (G,), wq/wk/wv (D, D)
 applied as ``x @ w``; temperature (1, heads, 1, 1), clamped by the caller
@@ -40,7 +45,7 @@ from . import _cuda
 
 _ENTRY = {torch.float32: "f32", torch.float64: "f64",
           torch.bfloat16: "bf16", torch.float16: "f16"}
-MAX_DIM = 128                   # csrc/slice_attention.cu kMaxDim (D and G)
+_INVALID_VALUE = 1  # cudaErrorInvalidValue
 
 
 def slice_weights(x_mid, ws, bs, temperature):
@@ -75,81 +80,149 @@ def slice_pool_plain(fx, xm, ws, bs, temp):
     dtype = xm.dtype
     fx, xm, ws, bs, temp = _math(fx, xm, ws, bs, temp)
     w = slice_weights(xm, ws, bs, temp[:, None, None])
-    return (w.transpose(1, 2) @ fx).to(dtype), w.sum(dim=1).to(dtype)
+    return (w.transpose(-1, -2) @ fx).to(dtype), w.sum(dim=-2).to(dtype)
 
 
 def slice_deslice_plain(xm, tok, ws, bs, temp):
-    """Plain version of :func:`slice_deslice`."""
+    """Plain version of :func:`slice_deslice` (a dense result)."""
     dtype = xm.dtype
     xm, tok, ws, bs, temp = _math(xm, tok, ws, bs, temp)
     return (slice_weights(xm, ws, bs, temp[:, None, None]) @ tok).to(dtype)
 
 
+def kernel_view(t):
+    """``t`` itself where its channels (last dimension) are adjacent, as
+    the kernels read them, so a projection's output view goes in with no
+    copy; otherwise a contiguous copy, made here and openly (e.g. a conv
+    output that is not channels-last)."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _rows(t):
+    """(B, H) and the (b, h, n) element strides of a (B·H, N, D) or
+    (B, H, N, D) view, read as B = 1 for three dimensions; a dimension of
+    size 1 gets stride 0."""
+    if t.dim() == 3:
+        shape, strides = (1, *t.shape[:2]), (0, *t.stride()[:2])
+    else:
+        shape, strides = t.shape[:3], t.stride()[:3]
+    return shape[:2], [0 if n == 1 else s for n, s in zip(shape, strides)]
+
+
 def _check(name, xm, ws, bs, temp):
+    """Validates the inputs of one kernel call; returns (B, H, N, D, G)
+    and x_mid's row strides."""
     if xm.dtype not in _ENTRY:
         raise TypeError(f"{name}: the kernel takes float32, float64, "
                         f"bfloat16 or float16, got {xm.dtype}")
-    BH, N, D = xm.shape
+    if not xm.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {xm.device}")
+    if xm.dim() not in (3, 4) or xm.stride(-1) != 1:
+        raise ValueError(f"{name}: x_mid must be (B·H, N, D) or (B, H, N, "
+                         f"D) with a channel stride of 1, got shape "
+                         f"{tuple(xm.shape)}, strides {xm.stride()}")
+    (B, H), strides = _rows(xm)
+    N, D = xm.shape[-2:]
     G = ws.shape[-1]
-    if not (1 <= D <= MAX_DIM and 1 <= G <= MAX_DIM):
-        raise ValueError(f"{name}: the kernel takes D, G ≤ {MAX_DIM}, got "
-                         f"D={D}, G={G}")
-    _cuda.check_cuda(f"{name} x_mid", xm, xm.dtype)
-    _cuda.check_cuda(f"{name} ws", ws, xm.dtype, (D, G))
-    _cuda.check_cuda(f"{name} bs", bs, xm.dtype, (G,))
-    _cuda.check_cuda(f"{name} temp", temp, xm.dtype, (BH,))
+    if ws.dim() != 2 or ws.shape[0] != D or not (N >= 1 and G >= 1):
+        raise ValueError(f"{name}: expected ws (D={D}, G), N ≥ 1, got ws "
+                         f"{tuple(ws.shape)}, N={N}")
+    if B * H > 65535:
+        raise ValueError(f"{name}: the kernels take B·H ≤ 65535, got "
+                         f"{B * H}")
     for t in (ws, bs, temp):
         if t.device != xm.device:
             raise ValueError(f"{name}: inputs on different devices")
-    return BH, N, D, G
+    if ws.dtype != xm.dtype:
+        raise TypeError(f"{name}: the kernel takes ws in {xm.dtype}, got "
+                        f"{ws.dtype}")
+    _cuda.check_cuda(f"{name} bs", bs, xm.dtype, (G,))
+    _cuda.check_cuda(f"{name} temp", temp, xm.dtype, (H,))
+    return B, H, N, D, G, strides
 
 
 @functools.lru_cache(maxsize=None)
-def _pool_plan(entry, device, BH, N, D, G):
-    """(chunks, tiles per chunk) of a slice_pool launch: one wave of
-    blocks on the card, from its SM count and the kernel's occupancy."""
+def _plan(kernel, entry, device, BH, N, D, G):
+    """(chunks, tiles per chunk) of a launch of ``kernel`` ("pool" or
+    "deslice"): one wave of blocks on the card, from its SM count and the
+    kernel's occupancy (SIMT slice_deslice: one tile per block). The CUDA
+    plan alone decides which D and G fit: it returns cudaErrorInvalidValue
+    where not even a 16-point SIMT tile fits in a block's shared memory
+    (the shapes ``_check`` passes are otherwise valid)."""
     chunks, per_chunk = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device):
-        err = getattr(_cuda.library(), f"pmc_slice_pool_plan_{entry}")(
+        err = getattr(_cuda.library(), f"pmc_slice_{kernel}_plan_{entry}")(
             BH, N, D, G, ctypes.byref(chunks), ctypes.byref(per_chunk))
-    _cuda.raise_on_error(err, "slice_pool")
+    if err == _INVALID_VALUE:
+        raise ValueError(
+            f"slice_{kernel}: the kernels take D and G up to what shared "
+            f"memory holds: a 16-point tile of D={D}, G={G} in {entry} "
+            f"does not fit in a block's shared memory")
+    _cuda.raise_on_error(err, f"slice_{kernel}")
     return chunks.value, per_chunk.value
 
 
 def slice_pool(fx, xm, ws, bs, temp):
-    """fx, xm (BH, N, D); ws (D, G); bs (G,); temp (BH,) → num (BH, G, D),
-    den (BH, G): the softmax-weighted sums of fx and of the weights."""
+    """fx, xm (B·H, N, D) or (B, H, N, D), channel stride 1; ws (D, G);
+    bs (G,); temp (H,) (H = B·H for three dimensions) → num (…, G, D),
+    den (…, G): the softmax-weighted sums of fx and of the weights."""
     if xm.device.type == "cpu":
         return slice_pool_plain(fx, xm, ws, bs, temp)
-    BH, N, D, G = _check("slice_pool", xm, ws, bs, temp)
-    _cuda.check_cuda("slice_pool fx", fx, xm.dtype, xm.shape)
-    chunks, per_chunk = _pool_plan(_ENTRY[xm.dtype], xm.device, BH, N, D,
-                                   G)
+    B, H, N, D, G, xs = _check("slice_pool", xm, ws, bs, temp)
+    if fx.dtype != xm.dtype or fx.shape != xm.shape \
+            or fx.device != xm.device or fx.stride(-1) != 1:
+        raise ValueError(f"slice_pool: fx must match x_mid's shape, type "
+                         f"and device with a channel stride of 1, got "
+                         f"{tuple(fx.shape)} {fx.dtype}, strides "
+                         f"{fx.stride()}")
+    entry = _ENTRY[xm.dtype]
+    chunks, per_chunk = _plan("pool", entry, xm.device, B * H, N, D, G)
     wide = torch.float64 if xm.dtype == torch.float64 else torch.float32
-    part = torch.empty(BH * chunks * G * (D + 1), dtype=wide,
+    part = torch.empty(B * H * chunks * G * (D + 1), dtype=wide,
                        device=xm.device)
-    num = torch.empty(BH, G, D, dtype=xm.dtype, device=xm.device)
-    den = torch.empty(BH, G, dtype=xm.dtype, device=xm.device)
-    err = getattr(_cuda.library(), f"pmc_slice_pool_{_ENTRY[xm.dtype]}")(
+    lead = xm.shape[:-2]
+    num = torch.empty(*lead, G, D, dtype=xm.dtype, device=xm.device)
+    den = torch.empty(*lead, G, dtype=xm.dtype, device=xm.device)
+    err = getattr(_cuda.library(), f"pmc_slice_pool_{entry}")(
         fx.data_ptr(), xm.data_ptr(), ws.data_ptr(), bs.data_ptr(),
         temp.data_ptr(), part.data_ptr(), num.data_ptr(), den.data_ptr(),
-        BH, N, D, G, chunks, per_chunk, _cuda.stream(xm))
+        B * H, H, N, D, G, *_rows(fx)[1], *xs, *ws.stride(), chunks,
+        per_chunk, _cuda.stream(xm))
     slice_pool.launches += 1
     _cuda.raise_on_error(err, "slice_pool")
     return num, den
 
 
+def _deslice_out(xm):
+    """The result of :func:`slice_deslice`: dense (B·H, N, D) for three
+    dimensions; for four, the (B, H, N, D) view of a (B, N, H·D) tensor,
+    the rows the output projection reads."""
+    if xm.dim() == 3:
+        return torch.empty(xm.shape, dtype=xm.dtype, device=xm.device)
+    B, H, N, D = xm.shape
+    out = torch.empty(B, N, H * D, dtype=xm.dtype, device=xm.device)
+    return out.view(B, N, H, D).permute(0, 2, 1, 3)
+
+
 def slice_deslice(xm, tok, ws, bs, temp):
-    """xm (BH, N, D); tok (BH, G, D); ws (D, G); bs (G,); temp (BH,) →
-    (BH, N, D): each point's softmax-weighted sum of the tokens."""
+    """xm (B·H, N, D) or (B, H, N, D), channel stride 1; tok (…, G, D);
+    ws (D, G); bs (G,); temp (H,) → out (…, N, D): each point's
+    softmax-weighted sum of the tokens. For four dimensions the result is
+    the (B, H, N, D) view of a (B, N, H·D) tensor, so that
+    ``out.transpose(1, 2).reshape(B, N, -1)`` is a view."""
     if xm.device.type == "cpu":
-        return slice_deslice_plain(xm, tok, ws, bs, temp)
-    BH, N, D, G = _check("slice_deslice", xm, ws, bs, temp)
-    _cuda.check_cuda("slice_deslice tok", tok, xm.dtype, (BH, G, D))
-    out = torch.empty_like(xm)
-    err = getattr(_cuda.library(), f"pmc_slice_deslice_{_ENTRY[xm.dtype]}")(
+        out = slice_deslice_plain(xm, tok, ws, bs, temp)
+        return out if xm.dim() == 3 else _deslice_out(xm).copy_(out)
+    B, H, N, D, G, xs = _check("slice_deslice", xm, ws, bs, temp)
+    _cuda.check_cuda("slice_deslice tok", tok, xm.dtype,
+                     (*xm.shape[:-2], G, D))
+    out = _deslice_out(xm)
+    entry = _ENTRY[xm.dtype]
+    chunks, per_chunk = _plan("deslice", entry, xm.device, B * H, N, D, G)
+    err = getattr(_cuda.library(), f"pmc_slice_deslice_{entry}")(
         xm.data_ptr(), tok.data_ptr(), ws.data_ptr(), bs.data_ptr(),
-        temp.data_ptr(), out.data_ptr(), BH, N, D, G, _cuda.stream(xm))
+        temp.data_ptr(), out.data_ptr(), B * H, H, N, D, G, *xs,
+        *_rows(out)[1], *ws.stride(), chunks, per_chunk, _cuda.stream(xm))
     slice_deslice.launches += 1
     _cuda.raise_on_error(err, "slice_deslice")
     return out
@@ -162,14 +235,13 @@ slice_deslice.launches = 0
 def slice_attention_fused(fx_mid, x_mid, ws, bs, temperature, wq, wk, wv):
     """The Physics-Attention core: (B, heads, N, D) → (B, heads, N, D),
     the result of :func:`slice_attention_plain` through :func:`slice_pool`
-    and :func:`slice_deslice` (the kernels, on CUDA tensors)."""
-    B, H, N, D = x_mid.shape
-    fx = fx_mid.reshape(B * H, N, D).contiguous()
-    xm = x_mid.reshape(B * H, N, D).contiguous()
-    temp = temperature.reshape(1, H).expand(B, H).reshape(B * H)
-    temp = temp.to(x_mid.dtype).contiguous()
-    ws, bs = ws.contiguous(), bs.contiguous()
+    and :func:`slice_deslice` (the kernels, on CUDA tensors). The
+    projections' views go in as they are (:func:`kernel_view`); the result
+    is the (B, heads, N, D) view of a (B, N, heads·D) tensor."""
+    H = x_mid.shape[1]
+    fx, xm = kernel_view(fx_mid), kernel_view(x_mid)
+    temp = temperature.reshape(H).to(x_mid.dtype)
     num, den = slice_pool(fx, xm, ws, bs, temp)
     token = num / (den[..., None] + 1e-5)
-    out_tok = token_attention(token, wq, wk, wv).contiguous()
-    return slice_deslice(xm, out_tok, ws, bs, temp).reshape(B, H, N, D)
+    out_tok = token_attention(token, wq, wk, wv)
+    return slice_deslice(xm, out_tok, ws, bs, temp)

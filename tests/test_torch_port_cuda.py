@@ -321,6 +321,79 @@ def test_cuda_slice_kernels_match_plain(cuda, dtype, BH, N, D, G):
                 <= SLICE_TOL[dtype] * float(b.abs().max()))
     num2, den2 = slice_pool(fx, xm, ws, bs, temp)
     assert torch.equal(num, num2) and torch.equal(den, den2)
+    assert torch.equal(out, slice_deslice(xm, tok, ws, bs, temp))
+
+
+def _heads_view(x, B, H, pad=0):
+    """(B·H, N, D) values as the (B, H, N, D) view of a (B, N, H·D + pad)
+    tensor: the layout of the Dense or channels-last projections (pad > 0:
+    rows that are not a multiple of 16 bytes apart)."""
+    BH, N, D = x.shape
+    rows = torch.zeros(B, N, H * D + pad, dtype=x.dtype, device=x.device)
+    view = rows[..., :H * D].view(B, N, H, D).permute(0, 2, 1, 3)
+    view.copy_(x.reshape(B, H, N, D))
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("BH,N,D,G", [(6, 200, 8, 16), (8, 4133, 16, 32),
+                                      (3, 1000, 32, 64), (2, 300, 64, 64),
+                                      (2, 700, 128, 128), (4, 1001, 16, 128),
+                                      (4, 1001, 128, 16), (3, 777, 7, 5),
+                                      (5, 333, 20, 24)])
+def test_cuda_slice_kernels_strided_match_plain(cuda, dtype, BH, N, D, G):
+    """Both kernels on (B, H, N, D) views of (B, N, H·D) rows (x_mid) and
+    of padded rows (fx, unaligned for the 16-bit types' cp.async), with
+    the ws of a Dense weight's transpose, against the plain versions of
+    the same values (tolerances: SLICE_TOL); the deslice writes the
+    (B, N, H·D) rows, and a second call gives the same bits."""
+    fx, xm, ws, bs, temp, tok = _slice_inputs(BH, N, D, G, dtype, cuda)
+    B = 2 if BH % 2 == 0 else 1
+    H = BH // B
+    fxv, xmv = _heads_view(fx, B, H, pad=1), _heads_view(xm, B, H)
+    wsv = ws.t().contiguous().t()
+    temp = temp[:H].contiguous()
+    tokv = tok.reshape(B, H, G, D)
+    num, den = slice_pool(fxv, xmv, wsv, bs, temp)
+    out = slice_deslice(xmv, tokv, wsv, bs, temp)
+    assert out.shape == (B, H, N, D)
+    flat = out.transpose(1, 2).reshape(B, N, H * D)
+    assert flat.data_ptr() == out.data_ptr() and flat.is_contiguous()
+    wide = [t.float() if dtype in (torch.bfloat16, torch.float16) else t
+            for t in (fxv, xmv, ws, bs, temp, tokv)]
+    num_p, den_p = slice_pool_plain(*wide[:5])
+    out_p = slice_deslice_plain(wide[1], wide[5], *wide[2:5])
+    torch.cuda.synchronize()
+    for a, b in ((num, num_p), (den, den_p), (out, out_p)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert (float((a.to(b.dtype) - b).abs().max())
+                <= SLICE_TOL[dtype] * float(b.abs().max()))
+    assert torch.equal(out, slice_deslice(xmv, tokv, wsv, bs, temp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,G", [(256, 160), (160, 256)])
+def test_cuda_slice_kernels_simt_wide_match_plain(cuda, dtype, D, G):
+    """D or G > 128 runs through the SIMT kernels, contiguous and on
+    (B, H, N, D) views, and matches the plain versions (SLICE_TOL)."""
+    fx, xm, ws, bs, temp, tok = _slice_inputs(4, 700, D, G, dtype, cuda)
+    temp = temp[:2].repeat(2)           # temp[h] of bh = 2 b + h
+    wide = [t.float() for t in (fx, xm, ws, bs, temp, tok)]
+    num_p, den_p = slice_pool_plain(*wide[:5])
+    out_p = slice_deslice_plain(wide[1], wide[5], *wide[2:5])
+    views = (_heads_view(fx, 2, 2, pad=3), _heads_view(xm, 2, 2),
+             temp[:2].contiguous(), tok.reshape(2, 2, G, D))
+    for f, x, t, k in ((fx, xm, temp, tok), views):
+        num, den = slice_pool(f, x, ws, bs, t)
+        out = slice_deslice(x, k, ws, bs, t)
+        torch.cuda.synchronize()
+        for a, b in ((num, num_p), (den, den_p), (out, out_p)):
+            a = a.reshape(b.shape).float()
+            assert (float((a - b).abs().max())
+                    <= SLICE_TOL[dtype] * float(b.abs().max()))
 
 
 @pytest.mark.cuda
@@ -351,8 +424,14 @@ def test_cuda_slice_kernels_raise_on_bad_input(cuda):
     with pytest.raises(TypeError):
         slice_deslice(xm, tok, ws.double(), bs, temp)
     big = _slice_inputs(1, 10, 129, 4, F32, cuda)
-    with pytest.raises(ValueError, match="D, G ≤ 128"):
-        slice_pool(*big[:5])
+    num, den = slice_pool(*big[:5])
+    num_p, den_p = slice_pool_plain(*big[:5])
+    torch.cuda.synchronize()
+    assert float((num - num_p).abs().max()) <= 1e-5 * float(num_p.abs().max())
+    assert float((den - den_p).abs().max()) <= 1e-5 * float(den_p.abs().max())
+    huge = _slice_inputs(1, 10, 4096, 4, F32, cuda)
+    with pytest.raises(ValueError, match="what shared memory holds"):
+        slice_pool(*huge[:5])
     with pytest.raises(ValueError):
         slice_pool(fx, xm.transpose(1, 2).contiguous().transpose(1, 2), ws,
                    bs, temp)

@@ -119,6 +119,30 @@ def test_physics_attention(kind):
     _close(out, jm.apply(p, jnp.asarray(x)))
 
 
+@pytest.mark.parametrize("kernel", [3, 5, 4])
+def test_structured_projection_reads_heads_in_place(kernel):
+    """The 2-D projection pads inside the conv (odd kernels) and keeps its
+    weights channels-last: the same values as the ``Conv2dTorch`` module
+    call (F.pad, then the conv), float64 ≤ 1e-12, and fx_mid, x_mid are
+    views whose heads are rows of dim_head adjacent values (the layout
+    the slice kernels read)."""
+    attn = tt.PhysicsAttentionStructuredMesh2D(
+        8, 6, 10, _rng(), heads=2, dim_head=4, slice_num=4,
+        kernel=kernel).to(F64)
+    x = torch.as_tensor(_rng(7).normal(size=(1, 60, 8)))
+    img = x.reshape(1, 6, 10, 8).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        for conv in (attn.in_project_fx, attn.in_project_x):
+            assert conv.weight.is_contiguous(
+                memory_format=torch.channels_last)
+            np.testing.assert_allclose(attn._conv(img, conv).numpy(),
+                                       conv(img).numpy(), rtol=1e-12,
+                                       atol=1e-12)
+        for y in attn.project(x):
+            assert y.shape == (1, 2, 60, 4)
+            assert y.stride(-1) == 1 and y.stride(2) == 8
+
+
 @pytest.mark.parametrize("structured", [True, False])
 @pytest.mark.parametrize("last_layer", [False, True])
 def test_transolver_block(structured, last_layer):
