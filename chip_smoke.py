@@ -16,7 +16,13 @@ Run from the repository root, with no arguments::
    in float64 and times the float32 guard of the port's convs;
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the flagship's 128×506 rollout gives it (TF32 off), and times
-   both;
+   both; the two energy kernels (``curl_advect_epilogue``,
+   ``advect_diffuse_step_fused``) also at zero velocity (dt must be
+   dt_diffuse to the bit), for the same bits on a second call, for their
+   device kernels per call (``torch.profiler``: one each), in a CUDA graph
+   replayed on new inputs (the eager bits), device-only beside their byte
+   bound and the launch floor (an empty kernel of the same grid), and for
+   the host's µs per call;
 3. drives the main path — the coupled ML_STOKES rollout of the flagship
    NewFluidNet (levels=5, c_h=16, repeats=6, k=5, learned padding, curl
    head; seeded random weights) through the fused executor at 128×506 and
@@ -119,6 +125,13 @@ TOL_TRANSOLVER = {"psi": 1e-4, "u": 1e-3, "v": 1e-3}
 # (34 GroupNorm layers) feeds its float32 reassociation noise back through
 # T → viscosity → velocities every step
 TOL_ROLLOUT = {"T": 1e-3, "u": 2e-2, "v": 2e-2}
+# device kernels of one call with the adaptive dt (torch.profiler): the
+# grid-wide dt is formed inside one cooperative launch
+DEVICE_KERNELS = {"curl_advect_epilogue": 1, "advect_diffuse_step_fused": 1}
+# threads per block of both energy kernels (csrc/epilogue.cu and
+# csrc/advect.cu kBlock): their launch floor is an empty kernel of as many
+# blocks of as many threads as the 128×506 call
+ENERGY_BLOCK = 512
 
 
 def card_line() -> str:
@@ -160,6 +173,66 @@ def queued_ms(fn, n: int = 200) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
+
+
+def host_us(fn, n: int = 300) -> float:
+    """The host's µs per call of ``fn`` (its wrapper's enqueue): n calls
+    timed on the host clock, the device kept ahead of them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def launch_floor(blocks: int, threads: int) -> dict:
+    """The device-only ms of an empty kernel of ``blocks`` × ``threads``,
+    200 queued back to back (``queued_ms``): an ordinary launch
+    ("plain"), a cooperative one, and a cooperative one whose blocks meet
+    once at ``this_grid().sync()`` (csrc/epilogue.cu::pmc_empty)."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.ops import _cuda
+    lib, st = _cuda.library(), torch.cuda.current_stream().cuda_stream
+    out = {}
+    for mode, name in ((0, "plain"), (1, "cooperative"),
+                       (2, "cooperative_sync")):
+        def empty(mode=mode):
+            _cuda.raise_on_error(lib.pmc_empty(blocks, threads, mode, st),
+                                 "pmc_empty")
+        out[name] = queued_ms(empty)
+    return out
+
+
+def graph_replay(name, fn, static, fresh, reps: int = 3) -> None:
+    """Captures ``fn(*static)`` in a ``torch.cuda.CUDAGraph``, then ``reps``
+    times copies new inputs (``fresh(k)``) into the static buffers,
+    replays, and holds the graph's outputs to the bits of an eager call on
+    the same inputs."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn(*static)
+    for k in range(reps):
+        new = fresh(k)
+        for a, b in zip(static, new):
+            a.copy_(b)
+        graph.replay()
+        eager = fn(*new)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(outs, eager)):
+            raise AssertionError(f"{name}: CUDA-graph replay {k} differs "
+                                 f"from the eager call")
+    print(f"{name}: captured in a CUDA graph; {reps} replays on new inputs "
+          f"give the eager bits")
 
 
 def bound_ms(n_bytes: float, flops: float, tensor_cores: bool = False
@@ -403,34 +476,84 @@ def check_kernels(H, W):
                         bound_by=by, library_ms=lib_ms, queued_ms=qms,
                         simt_bound_ms=sms)
 
-    # epilogue
-    consts, s, src = eng._epi, eng.stepper.scaler, eng.stepper._raq
-    outk = curl_advect_epilogue(psi[0], T[0], consts, s, src)
-    outp = curl_advect_epilogue_plain(psi[0], T[0], consts, s, src)
-    errs = [rel_err(a, b) for a, b in zip(outk, outp)]
-    err, rel = max(e for e, _ in errs), max(r for _, r in errs)
-    ms = cuda_ms(lambda: curl_advect_epilogue(psi[0], T[0], consts, s, src))
-    pms = cuda_ms(lambda: curl_advect_epilogue_plain(psi[0], T[0], consts,
-                                                     s, src), n=5)
-    nb = 4 * (2 * H * W + 4 * (H - 2) * (W - 2) + 3 * H * W + 1)
-    bms, by = bound_ms(nb, 45 * H * W)
-    print(f"curl_advect_epilogue {H}x{W}: max_abs_err={err:.3e} "
-          f"rel={rel:.3e} (tol {TOL['curl_advect_epilogue']}) ms={ms:.4f} "
-          f"plain_ms={pms:.4f} bound_ms={bms:.4f}")
-    if not rel <= TOL["curl_advect_epilogue"]:
-        raise AssertionError(f"curl_advect_epilogue disagrees: {rel}")
-    rec["curl_advect_epilogue"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                       bound_ms=bms, bound_by=by,
-                                       library_ms=None)
+    # the energy kernels
+    rec["curl_advect_epilogue"] = check_epilogue(eng, psi[0], T[0])
     rec["advect_diffuse_step_fused"] = check_advect(eng, T)
     return rec
+
+
+def check_epilogue(eng, psi, T):
+    """The epilogue kernel against its plain version at the main path's
+    psi and T (``check_kernels``): u, v, T_new and dt, the same bits on a
+    second call, constant psi (zero velocity: dt must be dt_diffuse
+    exactly), its device kernels per call (``torch.profiler``), a CUDA
+    graph replayed on new inputs; times it device-only and back to back,
+    beside its byte bound and the launch floor, and the host's µs per
+    call."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.ops.epilogue_kernel import (
+        curl_advect_epilogue, curl_advect_epilogue_plain)
+    H, W = T.shape
+    consts, s, src = eng._epi, eng.stepper.scaler, eng.stepper._raq
+
+    def epi(psi=psi, T=T):
+        return curl_advect_epilogue(psi, T, consts, s, src)
+    outk = epi()
+    outp = curl_advect_epilogue_plain(psi, T, consts, s, src)
+    errs = [rel_err(a, b) for a, b in zip(outk, outp)]
+    err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+    dt_rel = errs[3][1]
+    same = all(bool(torch.equal(a, b)) for a, b in zip(outk, epi()))
+    flat = epi(torch.full_like(psi, 0.7))
+    zero_ok = (float(flat[3]) == consts.dt_diffuse
+               and not bool(flat[0].any()) and not bool(flat[1].any()))
+    kernels = device_kernels(epi)
+    per_call = device_kernel_count(epi)
+    g = torch.Generator(device=psi.device).manual_seed(7)
+    graph_replay("curl_advect_epilogue", epi, [psi.clone(), T.clone()],
+                 lambda k: [psi * (1 + 0.1 * k) + 1e-3 * torch.randn(
+                     H, W, generator=g, device=psi.device),
+                     torch.clamp(T + 0.01 * torch.randn(
+                         H, W, generator=g, device=psi.device), 0, 1)])
+    ms = cuda_ms(epi)
+    qms = queued_ms(epi)
+    hus = host_us(epi)
+    pms = cuda_ms(lambda: curl_advect_epilogue_plain(psi, T, consts, s, src),
+                  n=5)
+    nb = 4 * (2 * H * W + 4 * (H - 2) * (W - 2) + 3 * H * W + 1)
+    bms, by = bound_ms(nb, 45 * H * W)
+    floor = launch_floor((H * W + ENERGY_BLOCK - 1) // ENERGY_BLOCK,
+                         ENERGY_BLOCK)
+    print(f"curl_advect_epilogue {H}x{W}: max_abs_err={err:.3e} "
+          f"rel={rel:.3e} (tol {TOL['curl_advect_epilogue']}) dt rel "
+          f"{dt_rel:.1e} repeatable={same} zero velocity dt == dt_diffuse: "
+          f"{zero_ok}; ms={ms:.4f} (device only, launches queued: "
+          f"{qms:.5f}) host_us={hus:.1f} plain_ms={pms:.4f} bound_ms="
+          f"{bms:.5f} ({by}) launch floor {floor['plain']:.5f} ms "
+          f"(cooperative {floor['cooperative']:.5f}, with one grid sync "
+          f"{floor['cooperative_sync']:.5f}); device kernels per call "
+          f"{per_call:g}: {dict(kernels)}")
+    if not (rel <= TOL["curl_advect_epilogue"] and dt_rel <= 1e-6 and same
+            and zero_ok):
+        raise AssertionError(f"curl_advect_epilogue disagrees: {rel}, dt "
+                             f"{dt_rel}, repeatable {same}, zero velocity "
+                             f"{zero_ok}")
+    if per_call != DEVICE_KERNELS["curl_advect_epilogue"]:
+        raise AssertionError(f"curl_advect_epilogue: {per_call} device "
+                             f"kernels per call ({dict(kernels)})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=None, queued_ms=qms,
+                launch_floor_ms=floor["plain"], host_us=hus,
+                device_kernels_per_call=per_call)
 
 
 def check_advect(eng, T):
     """The energy-step kernel against its plain version at 128×506, B=1:
     float32 with the scalar source (GAIA, ML_PRE) and with the field
-    source (Di > 0) under core cooling, and float64. Times the float32
-    scalar-source call."""
+    source (Di > 0) under core cooling, and float64. The float32
+    scalar-source call also twice for the same bits, at zero velocity (dt
+    must be dt_diffuse to the bit), for its device kernels per call and in
+    a CUDA graph replayed on new inputs; times it as ``check_epilogue``."""
     import torch
     from pbml_mantle_convection_tpu_torch.ops.advect_kernel import (
         advect_diffuse_step_fused, advect_diffuse_step_plain)
@@ -464,21 +587,47 @@ def check_advect(eng, T):
             raise AssertionError(f"advect {name} disagrees: {rel}, {dt_rel}")
         if err0 is None:
             err0 = err
-    ms = cuda_ms(lambda: advect_diffuse_step_fused(u, v, T, src, met,
-                                                   cn_max=0.99), n=200)
+
+    def step(u=u, v=v, T=T):
+        return advect_diffuse_step_fused(u, v, T, src, met, cn_max=0.99)
+    out = step()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(out, step()))
+    still = step(torch.zeros_like(u), torch.zeros_like(v))
+    d2 = met.dx_min * met.dx_min
+    zero_ok = bool(still[1] == 0.5 * (d2 * d2) / (d2 + d2))
+    kernels = device_kernels(step)
+    per_call = device_kernel_count(step)
+    graph_replay("advect_diffuse_step_fused f32", step,
+                 [u.clone(), v.clone(), T.clone()],
+                 lambda k: [u * (1 + 0.1 * k), v.flip(-1),
+                            torch.clamp(T + 0.01 * k, 0, 1)])
+    ms = cuda_ms(step, n=200)
     pms = cuda_ms(lambda: advect_diffuse_step_plain(u, v, T, src, met,
                                                     cn_max=0.99), n=50)
-    dms = queued_ms(lambda: advect_diffuse_step_fused(u, v, T, src, met,
-                                                      cn_max=0.99))
+    dms = queued_ms(step)
+    hus = host_us(step)
     # u, v, T and 4 interior metric arrays read, T written, 2 scalars
     nb = 4 * (4 * H * W + 4 * (H - 2) * (W - 2) + 2)
     bms, by = bound_ms(nb, 35 * H * W)
+    floor = launch_floor((H * W + ENERGY_BLOCK - 1) // ENERGY_BLOCK,
+                         ENERGY_BLOCK)
     print(f"advect_diffuse_step_fused {H}x{W} f32: ms={ms:.4f} "
-          f"(device only, launches queued: {dms:.4f}) plain_ms={pms:.4f} "
-          f"bound_ms={bms:.5f} ({by}); library_ms: none (no one PyTorch "
-          f"call computes an upwind step)")
+          f"(device only, launches queued: {dms:.5f}) host_us={hus:.1f} "
+          f"plain_ms={pms:.4f} bound_ms={bms:.5f} ({by}) launch floor "
+          f"{floor['plain']:.5f} ms; repeatable={same}, zero velocity dt "
+          f"== dt_diffuse: {zero_ok}; device kernels per call "
+          f"{per_call:g}: {dict(kernels)}; library_ms: none (no "
+          f"one PyTorch call computes an upwind step)")
+    if not (same and zero_ok):
+        raise AssertionError(f"advect: repeatable {same}, zero velocity "
+                             f"{zero_ok}")
+    if per_call != DEVICE_KERNELS["advect_diffuse_step_fused"]:
+        raise AssertionError(f"advect_diffuse_step_fused: {per_call} device "
+                             f"kernels per call ({dict(kernels)})")
     return dict(max_abs_err=err0, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, queued_ms=dms,
+                launch_floor_ms=floor["plain"], host_us=hus,
+                device_kernels_per_call=per_call)
 
 
 def run_main_path(counters):
@@ -1014,20 +1163,31 @@ def run_transolver(counters, iters=50, H=128, W=506, device="cuda"):
     return got
 
 
-def device_kernels(fn):
-    """The device kernels of one call of ``fn`` (after a warm-up call), by
-    name: ``torch.profiler``'s CUDA events."""
+def device_kernels(fn, calls: int = 1):
+    """The device kernels of ``calls`` calls of ``fn`` (after a warm-up
+    call), by name: ``torch.profiler``'s CUDA events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     return collections.Counter(
         e.name for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def device_kernel_count(fn, calls: int = 5, sessions: int = 3) -> float:
+    """Device kernels per call of ``fn``: ``calls`` calls in one profiler
+    session, the largest count of ``sessions`` sessions, over ``calls``.
+    On the H100 a short session now and then comes back with a kernel's
+    records missing (0 where the same call counts 1 in the next session);
+    none has come back with more."""
+    return max(sum(device_kernels(fn, calls).values())
+               for _ in range(sessions)) / calls
 
 
 def attention_layouts(structured, irregular, H, W, device="cuda"):
@@ -1205,6 +1365,12 @@ def main() -> int:
     transolver_checks(counters)
     print(f"transolver: {time.perf_counter() - t0:.1f} s")
 
+    floor = launch_floor(1, ENERGY_BLOCK)
+    print(f"launch floor: an empty kernel of one block of {ENERGY_BLOCK} "
+          f"threads, 200 "
+          f"queued: {floor['plain']:.5f} ms device only per launch "
+          f"(cooperative {floor['cooperative']:.5f}, with one grid sync "
+          f"{floor['cooperative_sync']:.5f})")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launch[k], **rec[k])
                for k in counters]

@@ -8,6 +8,7 @@
 
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace pmc {
@@ -15,6 +16,8 @@ namespace pmc {
 // Fields (pyramid levels) one layer launch takes; also the most coarse
 // branches the trunk upsamples.
 constexpr int kMaxLevels = 5;
+// Devices whose co-resident block counts are cached.
+constexpr int kMaxDevices = 64;
 
 // Internal linkage: every .cu file compiles its own copies.
 namespace {
@@ -73,6 +76,53 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
     asm volatile("cp.async.wait_group 2;\n" ::: "memory");
   else
     asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+}
+
+// Blocks of `threads` threads of `kernel` that the card holds at once
+// (resident blocks per SM x SMs): the largest grid whose blocks can all
+// wait for each other, as a cooperative launch requires. Queried once per
+// kernel and device.
+template <typename Kernel>
+cudaError_t coresident_blocks(Kernel kernel, int threads, int* blocks) {
+  static int cache[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, 0);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    cache[dev] = per_sm * sms;
+  }
+  *blocks = cache[dev];
+  return cudaSuccess;
+}
+
+// A cooperative launch (cooperative_groups::this_grid().sync() allowed):
+// the runtime refuses it, rather than hang, if the grid exceeds what the
+// card holds at once. A stream capture records it as a cooperative kernel
+// node.
+template <typename... Params, typename... Args>
+cudaError_t launch_cooperative(void (*kernel)(Params...), int blocks,
+                               int threads, cudaStream_t stream,
+                               const Args&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace

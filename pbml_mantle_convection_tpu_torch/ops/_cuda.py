@@ -46,11 +46,13 @@ _SIGNATURES = {
                   _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _P],
     "pmc_curl_advect_epilogue": [_P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P, _I,
                                  _I, _I, _F, _F, _F, _F, _P],
+    # the launch floor (csrc/epilogue.cu): blocks, threads, mode
+    "pmc_empty": [_I, _I, _I, _P],
     # float32 and float64 instances of csrc/advect.cu
     **{f"pmc_advect_{t}": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                           _P, _I, _I, _I, _D, _D, _D, _I, _I, _P]
+                           _I, _P, _I, _I, _I, _D, _D, _D, _I, _I, _P]
        for t in ("f32", "f64")},
     # the float32, float64, bfloat16 and float16 instances of
     # csrc/slice_attention.cu
@@ -154,6 +156,11 @@ def work_items(H: int, W: int) -> int:
 
 # fields one layer launch takes (csrc/pmc_common.cuh::kMaxLevels)
 MAX_LEVELS = 5
+# the most blocks of a cooperative launch (epilogue.cu, advect.cu) that
+# their grid-wide join's scratch holds; the C side caps the grid here and
+# at the blocks the card holds at once (a few hundred of 512 threads on an
+# H100), and the threads loop over the points past it
+JOIN_BLOCKS = 4096
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,6 +169,17 @@ def counters(device: torch.device) -> torch.Tensor:
     zero again after every launch (the last block of a field resets its
     counter). Launches that use them run on one stream at a time."""
     return torch.zeros(MAX_LEVELS, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def join_scratch(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The energy kernels' per-block values of their grid-wide join
+    (csrc/epilogue.cu, csrc/advect.cu) on ``device``: 2 · JOIN_BLOCKS
+    values, allocated at the first call (make it before a CUDA-graph
+    capture) and rewritten by every launch before it reads them, so a
+    replay needs no reset. Launches that use them run on one stream at a
+    time."""
+    return torch.empty(2 * JOIN_BLOCKS, dtype=dtype, device=device)
 
 
 def raise_on_error(err: int, name: str) -> None:

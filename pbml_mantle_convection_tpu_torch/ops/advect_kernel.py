@@ -6,15 +6,16 @@ From u, v, T of B simulations it computes the adaptive dt (one global max
 over the whole batch, as in JAX), the metric-aware upwind advection,
 Laplacian, source and Euler update, the optional interior clip to [0, 2],
 the replicated sidewalls and the plates (the bottom row replicates row 1
-under core cooling). On a CUDA tensor it launches ``csrc/advect.cu`` (float32
-or float64; dt stays in device memory: no host sync inside a step); on a
-CPU tensor it runs :func:`advect_diffuse_step_plain`.
+under core cooling). On a CUDA tensor it launches ``csrc/advect.cu`` once
+(float32 or float64; with the adaptive dt a cooperative launch that forms
+the grid-wide dt inside it, which stays in device memory: no host sync
+inside a step); on a CPU tensor it runs :func:`advect_diffuse_step_plain`.
 
 Unlike the Pallas wrapper, which sends field sources (the EBA terms,
 Di > 0) to XLA because SMEM holds only scalars, the kernel reads the
 source either as a device scalar or as a (B, H-2, W-2) field: every energy
-step on the card goes through it. What bounds it (bytes) and the design
-are written at the top of ``csrc/advect.cu``.
+step on the card goes through it. What bounds it (a launch, at these
+sizes) and the design are written at the top of ``csrc/advect.cu``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from ..physics.advection import GridMetrics, advect_diffuse_step
 from . import _cuda
 
 _ENTRY = {torch.float32: "pmc_advect_f32", torch.float64: "pmc_advect_f64"}
-_BLOCK = 256     # csrc/advect.cu kBlock: one scratch pair per block of pass 1
 
 
 def advect_diffuse_step_plain(u, v, T, src, metrics: GridMetrics,
@@ -86,18 +86,16 @@ def advect_diffuse_step_fused(u, v, T, src, metrics: GridMetrics,
     out = torch.empty_like(T)
     if dt is None:
         dt_out = torch.empty((), dtype=T.dtype, device=T.device)
-        nb = (B * (H - 2) * (W - 2) + _BLOCK - 1) // _BLOCK
-        part = torch.empty((2 * nb,), dtype=T.dtype, device=T.device)
+        part = _cuda.join_scratch(T.device, T.dtype)
     else:
         dt_out, part = dt, None
-    lib = _cuda.library()
-    err = getattr(lib, _ENTRY[T.dtype])(
+    err = getattr(_cuda.library(), _ENTRY[T.dtype])(
         u.data_ptr(), v.data_ptr(), T.data_ptr(), metrics.dx_l.data_ptr(),
         metrics.dx_r.data_ptr(), metrics.dy_t.data_ptr(),
         metrics.dy_b.data_ptr(), src.data_ptr(), int(field),
-        _cuda.ptr(dt), dt_out.data_ptr(), _cuda.ptr(part), out.data_ptr(),
-        B, H, W, float(cn_max), float(bottom_T), float(top_T),
-        int(core_cool), int(clip_T), _cuda.stream(T))
+        _cuda.ptr(dt), dt_out.data_ptr(), _cuda.ptr(part), _cuda.JOIN_BLOCKS,
+        out.data_ptr(), B, H, W, float(cn_max), float(bottom_T),
+        float(top_T), int(core_cool), int(clip_T), _cuda.stream(T))
     advect_diffuse_step_fused.launches += 1
     _cuda.raise_on_error(err, "advect_diffuse_step_fused")
     return (out[0] if squeeze else out), dt_out

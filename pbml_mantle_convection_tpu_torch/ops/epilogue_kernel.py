@@ -6,7 +6,8 @@ function ψ it computes the curl velocities (antisymmetric pads, zero
 corners, velocity scaler), the adaptive dt from the global max of |u|, |v|,
 the metric-aware upwind advection, Laplacian and source, the Euler update,
 the temperature BCs and the clip to [0, 2]. On a CUDA tensor it launches
-``csrc/epilogue.cu`` (dt stays in device memory: no host sync inside a
+``csrc/epilogue.cu`` once (a cooperative launch: the grid-wide dt is
+formed inside it, and dt stays in device memory: no host sync inside a
 step); on a CPU tensor it runs :func:`curl_advect_epilogue_plain`, the
 composition ``curl_head_padded`` (after the mean subtraction) → scaler →
 ``advect_diffuse_step`` → ``stamp_temperature_bc`` → clip.
@@ -14,8 +15,9 @@ composition ``curl_head_padded`` (after the mean subtraction) → scaler →
 The kernel skips the spatial-mean subtraction, which cancels analytically
 in the central differences (d/dx[(ψ − m)·c] = c·dψ/dx), so kernel and
 plain version agree to float32 reassociation, not bitwise. What bounds it
-on the card (bytes) and the design are written at the top of
-``csrc/epilogue.cu``.
+on the card (a launch, at these sizes) and the design are written at the
+top of ``csrc/epilogue.cu``. The fixed metrics are checked once, by
+:func:`epilogue_consts`; a call checks ψ, T and the source.
 """
 
 from __future__ import annotations
@@ -43,7 +45,14 @@ class EpilogueConsts(NamedTuple):
 
 def epilogue_consts(metrics: GridMetrics, a_bound: float,
                     cn_max: float) -> EpilogueConsts:
-    """Reads dx_min back once, when the engine is built (never per step)."""
+    """Reads dx_min back once, when the engine is built (never per step).
+    CUDA metrics are checked here, once: four contiguous float32
+    (H-2, W-2) tensors on one device."""
+    if metrics.dx_l.is_cuda:
+        for t in metrics:
+            _cuda.check_cuda_f32("epilogue metrics", t, metrics.dx_l.shape)
+            if t.device != metrics.dx_l.device:
+                raise ValueError("epilogue: metrics on different devices")
     dx_min = np.float32(metrics.dx_l.min().item())
     dx2 = np.float32(dx_min * dx_min)
     dt_diffuse = np.float32(0.5) * (dx2 * dx2) / (dx2 + dx2)
@@ -75,24 +84,24 @@ def curl_advect_epilogue(psi: torch.Tensor, T: torch.Tensor,
     _cuda.check_cuda_f32("epilogue psi", psi, (H, W))
     _cuda.check_cuda_f32("epilogue T", T, (H, W))
     _cuda.check_cuda_f32("epilogue src", src, ())
-    met = consts.metrics
-    for t in met:
-        _cuda.check_cuda_f32("epilogue metrics", t, (H - 2, W - 2))
-    for t in (T, src, *met):
-        if t.device != psi.device:
-            raise ValueError("epilogue: inputs on different devices")
-    lib = _cuda.library()
+    met, dev = consts.metrics, psi.device
+    if met.dx_l.shape != (H - 2, W - 2) or met.dx_l.device != dev:
+        raise ValueError(f"epilogue: constants for metrics of shape "
+                         f"{tuple(met.dx_l.shape)} on {met.dx_l.device}, "
+                         f"fields ({H}, {W}) on {dev}")
+    if T.device != dev or src.device != dev:
+        raise ValueError("epilogue: inputs on different devices")
     u = torch.empty_like(psi)
     v = torch.empty_like(psi)
     T_new = torch.empty_like(psi)
-    dt = torch.empty((), device=psi.device)
-    block_max = torch.empty(((H * W + 255) // 256,), device=psi.device)
-    err = lib.pmc_curl_advect_epilogue(
+    dt = torch.empty((), device=dev)
+    err = _cuda.library().pmc_curl_advect_epilogue(
         psi.data_ptr(), T.data_ptr(), met.dx_l.data_ptr(),
         met.dx_r.data_ptr(), met.dy_t.data_ptr(), met.dy_b.data_ptr(),
         src.data_ptr(), u.data_ptr(), v.data_ptr(), T_new.data_ptr(),
-        dt.data_ptr(), block_max.data_ptr(), H, W, consts.a_bound,
-        float(scaler), consts.adv_num, consts.dt_diffuse, _cuda.stream(psi))
+        dt.data_ptr(), _cuda.join_scratch(dev, torch.float32).data_ptr(),
+        _cuda.JOIN_BLOCKS, H, W, consts.a_bound, float(scaler),
+        consts.adv_num, consts.dt_diffuse, _cuda.stream(psi))
     curl_advect_epilogue.launches += 1
     _cuda.raise_on_error(err, "curl_advect_epilogue")
     return u, v, T_new, dt

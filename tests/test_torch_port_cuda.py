@@ -190,22 +190,60 @@ def test_cuda_trunk_matches_plain(cuda):
     assert float((y - yp).abs().max()) <= 1e-4 * float(yp.abs().max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("H,W", [(128, 506), (256, 256), (16, 32)])
-def test_cuda_epilogue_matches_plain(cuda, H, W):
+def _epilogue_inputs(H, W, device, seed=3):
     xc = torch.linspace(0, 4, W, dtype=F32).expand(H, W)
     yc = torch.linspace(0, 1, H, dtype=F32)[:, None].expand(H, W)
-    met = grid_metrics(xc.to(cuda), yc.to(cuda), aspect=4.0)
+    met = grid_metrics(xc.to(device), yc.to(device), aspect=4.0)
     consts = epilogue_consts(met, 4.0, 0.99)
-    g = torch.Generator().manual_seed(3)
-    psi = torch.randn(H, W, generator=g).to(cuda)
-    T = torch.rand(H, W, generator=g).to(cuda)
-    src = torch.tensor(3.0, device=cuda)
+    g = torch.Generator().manual_seed(seed)
+    psi = torch.randn(H, W, generator=g).to(device)
+    T = torch.rand(H, W, generator=g).to(device)
+    return consts, psi, T, torch.tensor(3.0, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(128, 506), (256, 256), (16, 32), (5, 7),
+                                 (18, 34)])
+def test_cuda_epilogue_matches_plain(cuda, H, W):
+    """u, v, T_new within 1e-5 of max |plain|, dt within 1e-6, and the
+    same bits on a second call; one launch per call."""
+    consts, psi, T, src = _epilogue_inputs(H, W, cuda)
+    n0 = curl_advect_epilogue.launches
     out = curl_advect_epilogue(psi, T, consts, 37.5, src)
+    assert curl_advect_epilogue.launches == n0 + 1
     ref = curl_advect_epilogue_plain(psi, T, consts, 37.5, src)
+    again = curl_advect_epilogue(psi, T, consts, 37.5, src)
     torch.cuda.synchronize()
-    for a, b in zip(out, ref):
+    for a, b in zip(out[:3], ref[:3]):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert abs(float(out[3]) - float(ref[3])) <= 1e-6 * float(ref[3])
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(128, 506), (5, 7)])
+def test_cuda_energy_kernels_at_zero_velocity(cuda, H, W):
+    """A constant ψ (epilogue) or u = v = 0 (energy step): the advective
+    limit is infinite, and dt must be the plain version's dt_diffuse to
+    the bit; T_new agrees with the plain version."""
+    consts, psi, T, src = _epilogue_inputs(H, W, cuda)
+    psi = torch.full_like(psi, 0.7)
+    u, v, T_new, dt = curl_advect_epilogue(psi, T, consts, 37.5, src)
+    ref = curl_advect_epilogue_plain(psi, T, consts, 37.5, src)
+    assert not u.any() and not v.any()
+    assert float(dt) == float(ref[3]) == consts.dt_diffuse
+    assert float((T_new - ref[2]).abs().max()) <= 1e-5 * float(
+        ref[2].abs().max())
+    for dtype in (torch.float32, torch.float64):
+        met = grid_metrics(*Grid(H=H, W=W).coords(cuda, dtype), aspect=4.0)
+        z = torch.zeros(2, H, W, dtype=dtype, device=cuda)
+        Tb = torch.rand(2, H, W, dtype=dtype, device=cuda)
+        out, dt = advect_diffuse_step_fused(z, z, Tb, 2.5, met)
+        ref, dt_ref = advect_diffuse_step_plain(z, z, Tb, 2.5, met)
+        assert float(dt) == float(dt_ref) and torch.isfinite(out).all()
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        assert float((out - ref).abs().max()) <= tol * float(
+            ref.abs().max())
 
 
 @pytest.mark.cuda
@@ -218,47 +256,92 @@ def test_cuda_wrappers_raise_on_bad_input(cuda):
         layer_stack(x[:8], sw)
     with pytest.raises(ValueError):
         layer_stack(x.transpose(1, 2).contiguous().transpose(1, 2), sw)
+    consts, psi, T, src = _epilogue_inputs(16, 32, cuda)
+    with pytest.raises(TypeError):
+        curl_advect_epilogue(psi.double(), T, consts, 37.5, src)
+    with pytest.raises(ValueError):     # constants of another grid
+        curl_advect_epilogue(psi[:, :-1].contiguous(), T[:, :-1].contiguous(),
+                             consts, 37.5, src)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,B,field,core_cool,clip_T", [
-    (torch.float32, 1, False, False, False),
-    (torch.float32, 2, True, False, False),
-    (torch.float32, 2, False, True, True),
-    (torch.float64, 1, True, False, False),
-    (torch.float64, 2, False, False, False),
-    (torch.float64, 1, True, True, True)])
-def test_cuda_advect_matches_plain(cuda, dtype, B, field, core_cool, clip_T):
-    """The energy step at 128×506: scalar and field sources, core cooling
-    and the clip. max |diff| / max |plain| ≤ 1e-5 in float32 (the kernel
-    contracts multiply-adds into FMAs), ≤ 1e-12 in float64; dt is the
-    same max/min reduction and formula, so it agrees to the last bits."""
-    H, W = 128, 506
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,H,W,field,core_cool,clip_T", [
+    (1, 128, 506, False, False, False),
+    (2, 128, 506, True, False, False),
+    (2, 128, 506, False, True, True),
+    (1, 128, 506, True, True, True),
+    (16, 128, 506, True, False, False),
+    (16, 128, 506, False, True, True),
+    (3, 5, 7, True, True, True),
+    (2, 18, 34, False, False, False)])
+def test_cuda_advect_matches_plain(cuda, dtype, B, H, W, field, core_cool,
+                                   clip_T):
+    """The energy step: scalar and field sources, core cooling and the
+    clip, at 128×506, at small and odd grids, and at B = 16 (more points
+    than the card holds threads at once, so the blocks loop and re-read
+    their inputs past the grid sync). max |diff| / max |plain| ≤ 1e-5 in
+    float32 (the kernel contracts multiply-adds into FMAs), ≤ 1e-12 in
+    float64; one dt for the batch, the same max/min reduction and formula,
+    within 1e-6; the same bits on a second call; one launch per call."""
     met = grid_metrics(*Grid(H=H, W=W).coords(cuda, dtype), aspect=4.0)
-    g = torch.Generator().manual_seed(4)
+    g = torch.Generator().manual_seed(4 + B + H)
     u, v = (40 * torch.randn(B, H, W, generator=g, dtype=dtype)
             for _ in range(2))
     T = torch.rand(B, H, W, generator=g, dtype=dtype) * (3 if clip_T else 1)
     src = (torch.randn(B, H - 2, W - 2, generator=g, dtype=dtype) + 2.0
            if field else torch.tensor(2.5, dtype=dtype))
     u, v, T, src = (t.to(cuda) for t in (u, v, T, src))
+    kw = dict(core_cool=core_cool, clip_T=clip_T)
     n0 = advect_diffuse_step_fused.launches
-    out, dt = advect_diffuse_step_fused(u, v, T, src, met, cn_max=0.99,
-                                        core_cool=core_cool, clip_T=clip_T)
+    out, dt = advect_diffuse_step_fused(u, v, T, src, met, cn_max=0.99, **kw)
     assert advect_diffuse_step_fused.launches == n0 + 1
+    again = advect_diffuse_step_fused(u, v, T, src, met, cn_max=0.99, **kw)
     ref, dt_ref = advect_diffuse_step_plain(u, v, T, src, met, cn_max=0.99,
-                                            core_cool=core_cool,
-                                            clip_T=clip_T)
+                                            **kw)
     torch.cuda.synchronize()
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert out.dtype == dtype and out.shape == (B, H, W)
     assert abs(float(dt) - float(dt_ref)) <= 1e-6 * float(dt_ref)
     assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert torch.equal(out, again[0]) and torch.equal(dt, again[1])
     # a given dt is used as it is
-    out2, dt2 = advect_diffuse_step_fused(u, v, T, src, met, dt=dt_ref,
-                                          core_cool=core_cool, clip_T=clip_T)
+    out2, dt2 = advect_diffuse_step_fused(u, v, T, src, met, dt=dt_ref, **kw)
     assert dt2 is dt_ref
     assert float((out2 - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_energy_kernels_replay_in_a_graph(cuda):
+    """One epilogue call and one adaptive energy step captured in a CUDA
+    graph: replays on new inputs copied into the static buffers give the
+    bits of eager calls on the same inputs."""
+    consts, psi, T, src = _epilogue_inputs(128, 506, cuda)
+    met = consts.metrics
+    u = 40 * torch.randn(1, 128, 506, device=cuda)
+    static = [psi.clone(), T.clone(), u.clone(), u.flip(-1).contiguous()]
+
+    def both(psi, T, u, v):
+        return (*curl_advect_epilogue(psi, T, consts, 37.5, src),
+                *advect_diffuse_step_fused(u, v, T[None], src, met,
+                                           cn_max=0.99))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = both(*static)
+    for k in range(3):
+        new = [psi * (1 + 0.2 * k), torch.clamp(T + 0.01 * k, 0, 1),
+               u * (1 - 0.2 * k), u.flip(-2).contiguous()]
+        for a, b in zip(static, new):
+            a.copy_(b)
+        graph.replay()
+        eager = both(*new)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, eager))
 
 
 @pytest.mark.cuda

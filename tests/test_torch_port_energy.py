@@ -150,15 +150,62 @@ def test_stamp_temperature_bc_core_cool(core_cool):
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
-def test_kernel_entry_points_match_their_ctypes_signatures():
-    """csrc/advect.cu has no compiler here: its two C entry points must at
-    least take the arguments the wrapper's ctypes signature declares."""
-    src = (_cuda.CSRC / "advect.cu").read_text()
-    assert "advect.cu" in _cuda.SOURCES
-    m = re.search(r"extern \"C\" int NAME\((.*?)\)\s*\{", src, re.S)
-    params = [p for p in m.group(1).replace("\\", "").split(",") if p.strip()]
-    kinds = [_cuda._P if "*" in p else _cuda._D if "double" in p else _cuda._I
-             for p in params]
-    for name in ("pmc_advect_f32", "pmc_advect_f64"):
-        assert f"PMC_ADVECT_ENTRY({name}," in src
-        assert _cuda._SIGNATURES[name] == kinds
+def _c_kinds(params: str):
+    """ctypes kinds of a C parameter list (every pointer is one kind:
+    c_void_p and POINTER(c_int) have the same width)."""
+    kinds = []
+    for p in params.replace("\\", " ").split(","):
+        p = " ".join(p.split())
+        if not p:
+            continue
+        kinds.append("ptr" if "*" in p else "double" if "double" in p else
+                     "float" if "float" in p else
+                     "long long" if "long long" in p else "int")
+    return kinds
+
+
+_KIND = {_cuda._P: "ptr", _cuda._IP: "ptr", _cuda._I: "int",
+         _cuda._F: "float", _cuda._D: "double", _cuda._L: "long long"}
+
+
+def _declarations():
+    """Entry point name → C parameter list, for every entry of
+    ``_cuda._SIGNATURES`` that a source declares by its own name
+    (``int name(...) {``, or through a macro whose ``NAME`` parameter the
+    source instantiates as ``MACRO(name, ...)``)."""
+    found = {}
+    for src in _cuda.SOURCES:
+        text = (_cuda.CSRC / src).read_text()
+        macros = {m.group(1): m.group(2) for m in re.finditer(
+            r"#define (\w+)\(NAME, \w+\)\s*\\\s*extern \"C\" int "
+            r"NAME\((.*?)\)\s*\{", text, re.S)}
+        for name in _cuda._SIGNATURES:
+            m = re.search(rf"\bint {name}\((.*?)\)\s*\{{", text, re.S)
+            if m:
+                found[name] = m.group(1)
+            for macro, params in macros.items():
+                if re.search(rf"^{macro}\({name},", text, re.M):
+                    found[name] = params
+    return found
+
+
+_DECLARED = _declarations()
+
+
+@pytest.mark.parametrize("name", sorted(_DECLARED))
+def test_kernel_entry_points_match_their_ctypes_signatures(name):
+    """The CUDA sources have no compiler here: each C entry point the
+    wrappers call must at least take the arguments its ctypes signature
+    declares, in width (a stale ``argtypes`` cuts a pointer to an int or
+    shifts every later argument silently)."""
+    assert [_KIND[t] for t in _cuda._SIGNATURES[name]] == \
+        _c_kinds(_DECLARED[name])
+
+
+def test_kernel_entry_points_are_declared():
+    """The energy kernels' entry points and every plainly declared one are
+    among the checked entries."""
+    for name in ("pmc_curl_advect_epilogue", "pmc_advect_f32",
+                 "pmc_advect_f64", "pmc_layer_stacks", "pmc_trunk",
+                 "pmc_empty"):
+        assert name in _DECLARED

@@ -201,15 +201,21 @@ def test_weight_fragments_layout():
     assert _tf32(v).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
 
 
-@pytest.mark.parametrize("H,W", [(16, 32), (18, 34)])
-def test_epilogue_plain_matches_jax_kernel(H, W):
+@pytest.mark.parametrize("H,W,still", [(16, 32, False), (18, 34, False),
+                                        (16, 32, True), (128, 506, False)])
+def test_epilogue_plain_matches_jax_kernel(H, W, still):
     """As tests/test_epilogue_kernel.py: the JAX CurlAdvectEpilogue in
-    interpret mode vs the port's plain epilogue, float32."""
+    interpret mode vs the port's plain epilogue, float32, also at the
+    production grid. ``still``: a constant ψ, so zero velocity, where dt
+    must be exactly dt_diffuse (max |u, v| = 0 makes the advective limit
+    infinite) in both, and in the port's constants."""
     jg = JGrid(H=H, W=W, aspect=(W - 2) / (H - 2), dtype="float32")
     jm = j_grid_metrics(jnp.asarray(jg.xc_np, jnp.float32),
                         jnp.asarray(jg.yc_np, jnp.float32), aspect=jg.aspect)
     rng = np.random.default_rng(3)
     psi = rng.normal(size=(H, W)).astype(np.float32)
+    if still:
+        psi = np.full((H, W), 0.7, np.float32)
     T = rng.random((H, W)).astype(np.float32)
     s, src = 37.5, 2.3e-3
     epi = CurlAdvectEpilogue(jm, H, W, 4.0, 0.99, dtype=jnp.float32,
@@ -229,6 +235,9 @@ def test_epilogue_plain_matches_jax_kernel(H, W):
                                    atol=1e-5)
     np.testing.assert_allclose(float(tdt), float(jdt), rtol=1e-5)
     assert np.all(tt.numpy()[0] == 1.0) and np.all(tt.numpy()[-1] == 0.0)
+    if still:
+        assert not tu.any() and not tv.any()
+        assert float(tdt) == float(jdt) == consts.dt_diffuse
 
 
 def test_trunk_plain_matches_flax_composition():
