@@ -26,9 +26,10 @@ Run from the repository root, with no arguments::
 3. drives the main path — the coupled ML_STOKES rollout of the flagship
    NewFluidNet (levels=5, c_h=16, repeats=6, k=5, learned padding, curl
    head; seeded random weights) through the fused executor at 128×506 and
-   256×256 — checks the kernel launch counts per step and that T stays
-   finite, prints steps/s, and compares 10 steps of the kernel path with
-   the plain-PyTorch module path;
+   256×256 with ``bench_torch.main()`` (20 warm-up steps, best of 3 × 500;
+   it echoes its JSON line and checks that T stays finite) — checks the
+   kernel launch counts per step (4 + 1 + 1 + 0), and compares 10 steps
+   of the kernel path with the plain-PyTorch module path;
 4. drives the other engine modes at 128×506 in float32 — GAIA (converged
    PT Stokes solve, ``make_stokes_fn`` defaults), GAIA-skip3, ML_PRE with
    the flagship (pre_iter=200) and ML_STOKES with core cooling, Di=0.5 and
@@ -53,8 +54,17 @@ Run from the repository root, with no arguments::
    into projections, slice attention and the rest; compares the kernel
    path's u, v with the einsum formulation's; runs TransolverIrregular
    once at the same N;
-6. prints one JSON line of per-kernel numbers, the card line again, and
-   last ``{"ok": true, "device": {...}}``.
+6. runs ``tools/torch_port_accuracy.py`` at 128×506 for 500 steps: the
+   flagship ML_STOKES rollout (fused, module float32 and module TF32
+   against the float64 module path with the energy step's plain version;
+   the fused T-RMSE must stay below ``ACC_T_RMSE`` and the TF32 control
+   must not) and the core-cooling Di=0.5 mode (printed, finite); each
+   leg's launches per step are checked, and kept out of the kernels line;
+7. runs ``cli/benchmark.py --what rollout --batch 4`` at 128×506 (4B + B
+   + 1 + 0 launches per step) and the same at B = 1;
+8. prints one JSON line of per-kernel numbers (launches summed over
+   phases 3, 4, 5 and 7), the card line again, and last ``{"ok": true,
+   "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no result
 line; so does a machine without a CUDA device or a directory without the
@@ -125,6 +135,11 @@ TOL_TRANSOLVER = {"psi": 1e-4, "u": 1e-3, "v": 1e-3}
 # (34 GroupNorm layers) feeds its float32 reassociation noise back through
 # T → viscosity → velocities every step
 TOL_ROLLOUT = {"T": 1e-3, "u": 2e-2, "v": 2e-2}
+# 500-step T-RMSE of the fused flagship rollout against the float64 module
+# path at 128×506, between the float32-accurate readings (fused 7.8e-7,
+# module float32 7.4e-7 on the H100) and the module path's at cuDNN TF32
+# (2.8e-5), which must fail it: the bound tells float32 from TF32
+ACC_T_RMSE = 5e-6
 # device kernels of one call with the adaptive dt (torch.profiler): the
 # grid-wide dt is formed inside one cooperative launch
 DEVICE_KERNELS = {"curl_advect_epilogue": 1, "advect_diffuse_step_fused": 1}
@@ -135,11 +150,11 @@ ENERGY_BLOCK = 512
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout
-    return out.strip().splitlines()[0]
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them."""
+    from pbml_mantle_convection_tpu_torch.utils.card import card_info
+    card = card_info("cuda")
+    return f"{card['device']}, {card['power_limit']}"
 
 
 def cuda_ms(fn, n: int = 20, warm: int = 3) -> float:
@@ -631,39 +646,39 @@ def check_advect(eng, T):
 
 
 def run_main_path(counters):
-    """Phase 3: the flagship rollout through the kernels at both grids.
-    Returns the launch counts of the timed runs."""
-    import torch
+    """Phase 3: the flagship rollout through the kernels at both grids,
+    timed by ``bench_torch.main()`` (its JSON line; it fails on a
+    non-finite T). Every count is set to 0 just before each run and read
+    just after it. Returns the launch counts of both runs."""
+    import os
+    import bench_torch
     launch = {n: 0 for n in counters}
-    for H, W in ((128, 506), (256, 256)):
-        _, fast, engine, T0 = flagship(H, W, "cuda")
-        eng = engine(fast)
-        state = eng.init_state(T0)
-        state, _ = eng.multi_step(state, 20)          # warm-up
-        torch.cuda.synchronize()
-        n, reps, best = 200, 3, 0.0
-        for fn in counters.values():
-            fn.launches = 0
-        for _ in range(reps):
+    saved = {k: os.environ.get(k) for k in ("PMC_BENCH_H", "PMC_BENCH_W")}
+    try:
+        for H, W in ((128, 506), (256, 256)):
+            os.environ["PMC_BENCH_H"], os.environ["PMC_BENCH_W"] = \
+                str(H), str(W)
+            for fn in counters.values():
+                fn.launches = 0
             t0 = time.perf_counter()
-            state, trace = eng.multi_step(state, n)
-            torch.cuda.synchronize()
-            best = max(best, n / (time.perf_counter() - t0))
-        got = {k: fn.launches for k, fn in counters.items()}
-        steps = n * reps
-        want = {"layer_stack": 4 * steps, "trunk": steps,
-                "curl_advect_epilogue": steps,
-                "advect_diffuse_step_fused": 0}
-        if got != want:
-            raise AssertionError(f"{H}x{W}: launches {got}, want {want}")
-        if not bool(torch.isfinite(state.T).all()):
-            raise AssertionError(f"{H}x{W}: T is not finite")
-        mean_T = trace.mean_T.cpu().numpy()
-        print(f"main path {H}x{W}: {best:.1f} steps/s (best of {reps} x "
-              f"{n} steps), launches {got} = 4+1+1+0 per step, "
-              f"mean T {mean_T[-1]:.6f}")
-        for k in launch:
-            launch[k] += got[k]
+            rec = bench_torch.main([])
+            got = {k: fn.launches for k, fn in counters.items()}
+            steps = rec["warmup_steps"] + rec["reps"] * rec["steps"]
+            want = {k: n * steps
+                    for k, n in bench_torch.LAUNCHES_PER_STEP.items()}
+            if got != want:
+                raise AssertionError(f"{H}x{W}: launches {got}, want {want}")
+            print(f"main path {H}x{W}: {rec['value']} steps/s (best of "
+                  f"{rec['reps']} x {rec['steps']} steps), launches {got} = "
+                  f"4+1+1+0 per step, {time.perf_counter() - t0:.1f} s")
+            for k in launch:
+                launch[k] += got[k]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return launch
 
 
@@ -1312,18 +1327,127 @@ def transolver_checks(counters, H=128, W=506, device="cuda"):
     attention_layouts(model, irregular, H, W, device)
 
 
+def accuracy_tool():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "tools" / "torch_port_accuracy.py"
+    spec = importlib.util.spec_from_file_location("torch_port_accuracy",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def leg_launches(mode, path):
+    """Kernel wrapper launches per step of one accuracy leg (``path``
+    "f64", "module" or "fused"): none for the
+    float64 reference (the module and the energy step's plain version),
+    the energy kernel alone for the module legs, and for the fused leg the
+    4 + 1 stages with the epilogue (ML_STOKES) or the energy kernel (the
+    Di mode, whose source term the epilogue does not take)."""
+    want = dict.fromkeys(("layer_stack", "trunk", "curl_advect_epilogue",
+                          "advect_diffuse_step_fused"), 0)
+    if path == "fused":
+        want.update(layer_stack=4, trunk=1)
+    if path != "f64":
+        want["curl_advect_epilogue" if (path, mode) == ("fused", "ML_STOKES")
+             else "advect_diffuse_step_fused"] = 1
+    return want
+
+
+def run_accuracy(H=128, W=506, steps=500, device="cuda"):
+    """Phase 6: the 500-step T-RMSE against the float64 module path
+    (``tools/torch_port_accuracy.py``): the flagship ML_STOKES rollout,
+    whose fused path must read T_rmse < ACC_T_RMSE and whose TF32 control
+    must not, and the core-cooling Di=0.5 mode, printed and checked
+    finite. Each leg's launches per step are checked (``leg_launches``);
+    none of them goes into the kernels line."""
+    acc = accuracy_tool()
+    weights = acc.flagship_weights(0)
+    recs = {}
+    for mode in ("ML_STOKES", acc.DI_MODE):
+        t0 = time.perf_counter()
+        rec = acc.measure(weights, H, W, steps, mode, device=device)
+        print(json.dumps(rec))
+        legs = {"f64": ("f64", rec["f64_launches_per_step"]),
+                **{name: (acc.VARIANTS[name][0],
+                          rec[name]["launches_per_step"])
+                   for name in acc.MODE_VARIANTS[mode]}}
+        for name, (path, got) in legs.items():
+            want = leg_launches(mode, path)
+            if got != want:
+                raise AssertionError(f"accuracy {mode} {name}: launches "
+                                     f"per step {got}, want {want}")
+        for name in acc.MODE_VARIANTS[mode]:
+            nums = [rec[name][k] for k in ("T_rmse", "trace_mae",
+                                           "steps_per_s")]
+            if not all(np.isfinite(nums)):
+                raise AssertionError(f"accuracy {mode}: {name} {rec[name]}")
+        print(f"accuracy {H}x{W} {mode}: {steps} steps, fused T_rmse "
+              f"{rec['fused']['T_rmse']:.3e}, float64 leg "
+              f"{rec['f64_seconds']:.2f} s, launches per step checked, "
+              f"{time.perf_counter() - t0:.1f} s")
+        recs[mode] = rec
+    flag, di = recs["ML_STOKES"], recs[acc.DI_MODE]
+    fused, tf32 = flag["fused"]["T_rmse"], flag["module_tf32"]["T_rmse"]
+    if not fused < ACC_T_RMSE:
+        raise AssertionError(f"accuracy: fused T_rmse {fused:.3e} >= "
+                             f"{ACC_T_RMSE}")
+    if not tf32 >= ACC_T_RMSE:
+        raise AssertionError(f"accuracy: the TF32 control reads T_rmse "
+                             f"{tf32:.3e} < {ACC_T_RMSE}: the bound no "
+                             f"longer tells float32 from TF32")
+    print(f"accuracy: fused T_rmse {fused:.3e} < {ACC_T_RMSE} <= TF32 "
+          f"control {tf32:.3e}; the Di=0.5 mode's fused T_rmse is "
+          f"{di['fused']['T_rmse'] / fused:.2f}x the flagship's")
+
+
+def run_batched(counters, B=4, H=128, W=506, steps=500, device="cuda"):
+    """Phase 7: ``cli/benchmark.py --what rollout --batch B`` at 128×506
+    (4B ``layer_stack`` + B ``trunk`` + 1 ``advect_diffuse_step_fused`` +
+    0 ``curl_advect_epilogue`` launches per step), then the same at B = 1
+    for its sim-steps/s. Returns the launch counts of both."""
+    from pbml_mantle_convection_tpu_torch.cli import benchmark
+    launch = {k: 0 for k in counters}
+    sps = {}
+    for b in (B, 1):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        sps[b] = benchmark.main(["--what", "rollout", "--batch", str(b),
+                                 "--H", str(H), "--W", str(W),
+                                 "--steps", str(steps),
+                                 "--device", device])
+        got = {k: fn.launches for k, fn in counters.items()}
+        n = steps + min(steps, 20)                   # timed + warm-up
+        want = ({"layer_stack": 4 * b * n, "trunk": b * n,
+                 "advect_diffuse_step_fused": n, "curl_advect_epilogue": 0}
+                if b > 1 else
+                {"layer_stack": 4 * n, "trunk": n,
+                 "advect_diffuse_step_fused": 0, "curl_advect_epilogue": n})
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"rollout B={b}: launches {got}, "
+                                 f"want {want}")
+        print(f"rollout B={b} {H}x{W}: {sps[b]:.1f} steps/s, "
+              f"{b * sps[b]:.1f} sim-steps/s, launches "
+              f"{ {k: got[k] / n for k in want} } per step, "
+              f"{time.perf_counter() - t0:.1f} s")
+        for k in launch:
+            launch[k] += got[k]
+    print(f"rollout B={B}: {B * sps[B]:.1f} sim-steps/s against "
+          f"{B} x {sps[1]:.1f} = {B * sps[1]:.1f} at B=1 "
+          f"({sps[B] / sps[1]:.3f} of it; {B * sps[B] / sps[1]:.3f} of the "
+          f"B=1 sim-steps/s)")
+    return launch
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    import bench_torch
     from pbml_mantle_convection_tpu_torch.ops import _cuda
-    from pbml_mantle_convection_tpu_torch.ops.advect_kernel import (
-        advect_diffuse_step_fused)
-    from pbml_mantle_convection_tpu_torch.ops.branch_kernel import layer_stack
-    from pbml_mantle_convection_tpu_torch.ops.epilogue_kernel import (
-        curl_advect_epilogue)
-    from pbml_mantle_convection_tpu_torch.ops.merge_kernel import trunk
     from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
         slice_deslice, slice_pool)
 
@@ -1345,9 +1469,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rec = check_kernels(128, 506)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
-    counters = {"layer_stack": layer_stack, "trunk": trunk,
-                "curl_advect_epilogue": curl_advect_epilogue,
-                "advect_diffuse_step_fused": advect_diffuse_step_fused}
+    counters = bench_torch.counters()
     launch = run_main_path(counters)
     compare_paths(128, 506)
     t0 = time.perf_counter()
@@ -1364,6 +1486,14 @@ def main() -> int:
         launch[k] += n
     transolver_checks(counters)
     print(f"transolver: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    run_accuracy()
+    print(f"accuracy: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for k, n in run_batched(counters).items():
+        launch[k] += n
+    print(f"batched rollout: {time.perf_counter() - t0:.1f} s")
 
     floor = launch_floor(1, ENERGY_BLOCK)
     print(f"launch floor: an empty kernel of one block of {ENERGY_BLOCK} "

@@ -6,9 +6,11 @@ and its metric names; prints one JSON line. ``--what inference`` times
 reference's timing loop, load_fluidnet.ipynb cell 7): NewFluidNet through
 the fused executor (``--raw-module``: the module), the Transolvers through
 their forward. ``--what rollout`` times ``--steps`` coupled ML_STOKES
-steps of a NewFluidNet at B = 1 after a short warm-up. The inputs are
-the JAX CLI's: zeros for inference, the field of ``bench.py`` for the
-rollout; the weights come from seed 0::
+steps of a NewFluidNet after a short warm-up, ``--batch`` simulations
+per step (the fused executor runs them one after another, the energy
+step runs once for the batch). The inputs are the JAX CLI's: zeros for
+inference, the field of ``bench.py`` for the rollout, phase-shifted per
+simulation when B > 1; the weights come from seed 0::
 
     python -m pbml_mantle_convection_tpu_torch.cli.benchmark \\
         --what inference -net transolver_structured
@@ -55,8 +57,7 @@ def build_parser():
     p.add_argument("--dtype", type=str, default="float32",
                    choices=sorted(_DTYPES))
     p.add_argument("--batch", type=int, default=1,
-                   help="simultaneous simulations per rollout step (the "
-                        "port runs B = 1)")
+                   help="simultaneous simulations per rollout step")
     p.add_argument("--roll_forward", type=int, default=1,
                    help="--what train (not ported)")
     p.add_argument("--raw-module", action="store_true",
@@ -78,19 +79,19 @@ def _unported(args) -> str | None:
         return "--what train (ROADMAP queue 1 item 4)"
     if args.sharded:
         return "--sharded (ROADMAP queue 1 item 7)"
-    if args.what == "rollout" and args.batch > 1:
-        return "rollout with --batch > 1 (ROADMAP queue 1 item 3)"
     if args.what == "rollout" and args.network != "newfluidnet":
         return (f"rollout of {args.network!r} (the port's stepper runs the "
                 f"FluidNet family; ROADMAP queue 1 item 6)")
     return None
 
 
-def initial_temperature(grid: Grid) -> np.ndarray:
-    """(1, H, W) initial field of the rollout: ``bench.py``'s, as the JAX
-    CLI builds it (JAX ``cli/benchmark.py:199-200``)."""
-    return np.clip(1.0 - grid.yc + 0.05 * np.sin(6.28 * grid.xc),
-                   0.0, 1.0)[None]
+def initial_temperature(grid: Grid, batch: int = 1) -> np.ndarray:
+    """(B, H, W) initial fields of the rollout as the JAX CLI builds them
+    (JAX ``cli/benchmark.py:199-206``): simulation b's phase shifted by
+    0.37·b, so simulation 0's is ``bench.py``'s."""
+    return np.stack([np.clip(1.0 - grid.yc
+                             + 0.05 * np.sin(6.28 * grid.xc + 0.37 * b),
+                             0.0, 1.0) for b in range(batch)])
 
 
 def inference_input(network: str, H: int, W: int, c_i: int, dtype,
@@ -151,13 +152,13 @@ def main(argv=None):
             "device": name, **flags}))
         return ms
 
-    # rollout: the coupled ML_STOKES engine, B = 1
+    # rollout: the coupled ML_STOKES engine, B simulations
     apply_fn = FastNewFluidNet(model, H, W) if (
         dtype == torch.float32 and unsupported_reason(model) is None) \
         else model
     engine = SimEngine(TimeStepper(grid, params, apply_fn, cn_max=0.99,
                                    dtype=dtype, device=device))
-    state = engine.init_state(initial_temperature(grid))
+    state = engine.init_state(initial_temperature(grid, args.batch))
     state, _ = engine.multi_step(state, min(args.steps, 20))   # warm-up
     sync(device)
     t0 = time.perf_counter()
@@ -166,9 +167,13 @@ def main(argv=None):
     sps = args.steps / (time.perf_counter() - t0)
     if not bool(torch.isfinite(state.T).all()):
         raise RuntimeError("rollout: T is not finite")
-    print(json.dumps({"metric": f"rollout_steps_per_s_{H}x{W}",
-                      "value": round(sps, 2), "unit": "steps/s",
-                      "device": name, **flags}))
+    B = args.batch
+    out = {"metric": f"rollout_steps_per_s_{H}x{W}"
+                     + (f"_B{B}" if B > 1 else ""),
+           "value": round(sps, 2), "unit": "steps/s"}
+    if B > 1:
+        out["sim_steps_per_s"] = round(sps * B, 2)
+    print(json.dumps({**out, "device": name, **flags}))
     return sps
 
 

@@ -78,3 +78,35 @@ def avg_pool_nchw(x, factor: int):
 def avg_pool_nhwc(x, factor: int):
     """:func:`avg_pool_nchw` on an NHWC tensor."""
     return avg_pool_nchw(x.permute(0, 3, 1, 2), factor).permute(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _lin_matrix_np(in_size: int, out_size: int,
+                   align_corners: bool = False) -> np.ndarray:
+    """(out_size, in_size) linear interpolation matrix, float64; half-pixel
+    source coordinates clamped to the input, or ``align_corners``."""
+    if in_size == out_size:
+        return np.eye(in_size)
+    M = np.zeros((out_size, in_size), dtype=np.float64)
+    if align_corners and out_size > 1:
+        src = np.arange(out_size) * (in_size - 1) / (out_size - 1)
+    else:
+        src = np.clip((np.arange(out_size) + 0.5) * in_size / out_size - 0.5,
+                      0, in_size - 1)
+    base = np.floor(src).astype(np.int64)
+    frac = src - base
+    hi = np.clip(base + 1, 0, in_size - 1)
+    np.add.at(M, (np.arange(out_size), base), 1.0 - frac)
+    np.add.at(M, (np.arange(out_size), hi), frac)
+    return M
+
+
+def resize_bilinear_nhwc(x, out_hw, align_corners: bool = False):
+    """Bilinear resize of an NHWC tensor on its H and W axes (the
+    reference's ``up_layer``, datasetio.py:94)."""
+    def mat(n_in, n_out):
+        return torch.as_tensor(_lin_matrix_np(n_in, n_out, align_corners),
+                               dtype=x.dtype, device=x.device)
+
+    y = torch.einsum("oh,bhwc->bowc", mat(x.shape[1], out_hw[0]), x)
+    return torch.einsum("pw,bowc->bopc", mat(x.shape[2], out_hw[1]), y)

@@ -110,3 +110,44 @@ def viscous_dissipation(u, v, V, metrics: GridMetrics):
     shear = du_dy + dv_dx
     return V[..., 1:-1, 1:-1] * (
         2.0 * du_dx**2 + 2.0 * dv_dy**2 + shear**2)
+
+
+def advect_diffuse_step_weno(u, v, T, raq_ra, dx: float = 1.0 / 126.0,
+                             dt: Optional[torch.Tensor] = None,
+                             cn_max: float = 0.1):
+    """Upwind step on a uniform grid spacing ``dx`` with fourth-order
+    hyperdiffusion, the forward pass of the reference's ``ADNetWENO``
+    (ad_nets-checkpoint.py:25-147, "WENO has bugs; use upwind for now"):
+    first-order upwind fluxes, [1, -4, 6, -4, 1]/dx⁴ along each axis of the
+    replicate-padded T (:88-111), its own adaptive dt, T = 1 on row 0 and
+    0 on the last row. Returns (T_new (..., H, W), dt)."""
+    u_int = u[..., 1:-1, 1:-1]
+    v_int = v[..., 1:-1, 1:-1]
+
+    dT_l = dx_left(T)[..., 1:-1, :]
+    dT_r = dx_right(T)[..., 1:-1, :]
+    dT_t = dy_top(T)[..., :, 1:-1]
+    dT_b = dy_bot(T)[..., :, 1:-1]
+    flux_x = dT_l / dx * (u_int > 0) + dT_r / dx * (u_int < 0)
+    flux_y = dT_t / dx * (v_int > 0) + dT_b / dx * (v_int < 0)
+
+    Tpx = replicate_pad(T, (2, 2, 0, 0))
+    Tpy = replicate_pad(T, (0, 0, 2, 2))
+    d4x = (Tpx[..., :, :-4] - 4 * Tpx[..., :, 1:-3] + 6 * Tpx[..., :, 2:-2]
+           - 4 * Tpx[..., :, 3:-1] + Tpx[..., :, 4:]) / dx**4
+    d4y = (Tpy[..., :-4, :] - 4 * Tpy[..., 1:-3, :] + 6 * Tpy[..., 2:-2, :]
+           - 4 * Tpy[..., 3:-1, :] + Tpy[..., 4:, :]) / dx**4
+    diffusion = (d4x + d4y)[..., 1:-1, 1:-1]
+
+    if dt is None:
+        uv_mag = torch.maximum(u_int.abs().max(), v_int.abs().max())
+        dt_advect = 0.5 * cn_max * dx / uv_mag
+        dt_diffuse = 0.5 * (dx * dx) ** 2 / (dx**2 + dx**2)
+        dt = torch.clamp(dt_advect, max=dt_diffuse)
+
+    T_int = (T[..., 1:-1, 1:-1] - dt * (u_int * flux_x + v_int * flux_y)
+             + dt * (diffusion + raq_ra))
+    T_new = replicate_pad(T_int)
+    T_new[..., 0, :] = 1.0
+    T_new[..., -1, :] = 0.0
+    return T_new, dt

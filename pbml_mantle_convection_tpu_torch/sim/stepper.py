@@ -75,8 +75,9 @@ class TimeStepper:
 
     ``apply_fn``: (B, H, W, 7) NHWC → (u, v, p|None), e.g. a
     :class:`~..models.fluidnet.NewFluidNet`; a
-    :class:`~..models.fast_path.FastNewFluidNet` also serves the fused
-    path (:meth:`stokes_psi`); None for a stepper without a surrogate.
+    :class:`~..models.fast_path.FastNewFluidNet` runs one simulation per
+    call (B calls per step) and also serves the fused path at B = 1
+    (:meth:`stokes_psi`); None for a stepper without a surrogate.
     ``core_cool`` leaves the bottom row of :meth:`step` free.
     """
 
@@ -114,9 +115,19 @@ class TimeStepper:
             raise ValueError("TimeStepper.stokes: this stepper has no "
                              "surrogate (apply_fn=None)")
         fn = self._bound_fast()
-        if fn is not None and T.shape[0] == 1:
+        if fn is not None:
             V = viscosity(T, self._static, self.params)
-            u, v, p = fn.apply_from_T(T, V)
+            if T.shape[0] == 1:
+                u, v, p = fn.apply_from_T(T, V)
+            else:
+                # each simulation through the B = 1 executor in turn, as
+                # the JAX stepper's lax.map does (stepper.py:212-228); the
+                # executor has no pressure output
+                outs = [fn.apply_from_T(T[i:i + 1], V[i:i + 1])
+                        for i in range(T.shape[0])]
+                u = torch.cat([o[0] for o in outs])
+                v = torch.cat([o[1] for o in outs])
+                p = None
         else:
             x, V = assemble_fluidnet_input(T, self._static, self.params)
             u, v, p = self.apply_fn(x)

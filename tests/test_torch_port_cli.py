@@ -1,5 +1,6 @@
 """The port's benchmark CLI on the CPU (``--device cpu``) at small grids:
-inference of the Transolvers and NewFluidNet, the NewFluidNet rollout,
+inference of the Transolvers and NewFluidNet, the NewFluidNet rollout
+at B = 1 and B > 1,
 the JAX CLI's metric names and inputs (and the first rollout step's dt
 from them), TF32 off, and the choices that are not ported yet."""
 
@@ -55,6 +56,27 @@ def test_rollout(capsys):
     assert rec["tf32_conv"] is False and rec["tf32_matmul"] is False
 
 
+@pytest.mark.parametrize("pad", ["learned", "zeros"])
+def test_batched_rollout(capsys, monkeypatch, pad):
+    """--batch 2: B simulations per step, the fused executor once per
+    simulation (learned padding; zeros runs the module), sim-steps/s."""
+    from pbml_mantle_convection_tpu_torch.models import fast_path
+    calls = []
+    apply = fast_path.FastNewFluidNet.apply_from_T
+    monkeypatch.setattr(fast_path.FastNewFluidNet, "apply_from_T",
+                        lambda self, T, V=None: calls.append(T.shape[0])
+                        or apply(self, T, V))
+    sps = main(["--what", "rollout", "-l", "2", "-f", "8", "-r", "1",
+                "--H", "20", "--W", "28", "--steps", "2", "--batch", "2",
+                "-pad", pad, "--device", "cpu"])
+    rec = _last_json(capsys)
+    assert rec["metric"] == "rollout_steps_per_s_20x28_B2"
+    assert rec["unit"] == "steps/s" and rec["value"] == round(sps, 2)
+    assert rec["sim_steps_per_s"] == round(2 * sps, 2)
+    # warm-up and timed steps: 2 + 2, two simulations each
+    assert calls == ([1] * 8 if pad == "learned" else [])
+
+
 @pytest.mark.parametrize("network,H,W", [
     ("transolver_structured", 16, 24), ("transolver", 8, 12),
     ("newfluidnet", 20, 28)])
@@ -77,9 +99,17 @@ def test_inputs_are_the_jax_clis(network, H, W):
 
     jgrid = JGrid(H=H, W=W, aspect=(W - 2) / (H - 2), dtype="float64")
     T0 = jnp.clip(1.0 - jgrid.yc + 0.05 * jnp.sin(6.28 * jgrid.xc), 0, 1)
-    T = initial_temperature(Grid(H=H, W=W, aspect=(W - 2) / (H - 2)))
+    grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
+    T = initial_temperature(grid)
     assert T.shape == (1, H, W)
     np.testing.assert_allclose(T[0], np.asarray(T0), rtol=1e-15, atol=0)
+    # B > 1: phase-shifted fields (JAX cli/benchmark.py:201-206)
+    T0s = jnp.stack([jnp.clip(1.0 - jgrid.yc
+                              + 0.05 * jnp.sin(6.28 * jgrid.xc + 0.37 * b),
+                              0, 1) for b in range(3)])
+    T = initial_temperature(grid, 3)
+    assert T.shape == (3, H, W)
+    np.testing.assert_allclose(T, np.asarray(T0s), rtol=1e-15, atol=0)
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -141,12 +171,21 @@ def test_metric_name_matches_the_jax_cli(capsys, monkeypatch):
     rec = _last_json(capsys)
     assert rec["metric"] == ref["metric"]
     assert set(ref) <= set(rec)
+    # the B > 1 rollout (JAX cli/benchmark.py:256-267), at a size that
+    # compiles quickly
+    argv = ["--what", "rollout", "-l", "1", "-f", "4", "-r", "1", "-k", "3",
+            "--H", "8", "--W", "12", "--steps", "1", "--batch", "3"]
+    jax_main(argv)
+    ref = _last_json(capsys)
+    main(argv + ["--device", "cpu"])
+    rec = _last_json(capsys)
+    assert rec["metric"] == ref["metric"] == "rollout_steps_per_s_8x12_B3"
+    assert set(ref) <= set(rec)
 
 
 @pytest.mark.parametrize("argv,match", [
     (["--what", "train"], "ROADMAP queue 1 item 4"),
     (["--what", "rollout", "--sharded"], "ROADMAP queue 1 item 7"),
-    (["--what", "rollout", "--batch", "2"], "ROADMAP queue 1 item 3"),
     (["--what", "rollout", "-net", "transolver_structured"],
      "ROADMAP queue 1 item 6"),
     (["--what", "inference", "-net", "unet"], "ROADMAP queue 1 item 5"),

@@ -581,3 +581,46 @@ def test_cuda_module_convs_float32_at_default_flags(cuda, monkeypatch):
             for a, b in zip(got[:2], ref[:2]):
                 assert a.dtype == F32
                 assert _rel64(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_batched_rollout_through_the_kernels(cuda):
+    """B = 4 at 128×506: the fused executor runs each simulation (4B
+    ``layer_stack`` + B ``trunk`` launches per step), the energy step one
+    batched ``advect_diffuse_step_fused`` launch, no epilogue; 10 steps
+    agree with the module path within chip_smoke.py's TOL_ROLLOUT."""
+    import numpy as np
+    from pbml_mantle_convection_tpu_torch.cli.benchmark import (
+        initial_temperature)
+    from pbml_mantle_convection_tpu_torch.constants import SimParams
+    from pbml_mantle_convection_tpu_torch.models.fast_path import (
+        FastNewFluidNet)
+    from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet
+    from pbml_mantle_convection_tpu_torch.sim.engine import SimEngine
+    from pbml_mantle_convection_tpu_torch.sim.stepper import TimeStepper
+    H, W, B, K = 128, 506, 4, 10
+    grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
+    model = NewFluidNet(levels=5, c_i=7, c_h=16, c_o=1, act_fn="gelu",
+                        r_p="learned", loss_type="curl", repeats=6, f=5,
+                        p_pred=False, seed=0, device=cuda)
+    T0 = initial_temperature(grid, B)
+    finals = []
+    wrappers = (layer_stack, trunk, advect_diffuse_step_fused,
+                curl_advect_epilogue)
+    for apply_fn in (FastNewFluidNet(model, H, W), model):
+        eng = SimEngine(TimeStepper(grid, SimParams(3.0, 1e8, 10.0),
+                                    apply_fn, cn_max=0.99, device=cuda))
+        before = [fn.launches for fn in wrappers]
+        state = eng.multi_step(eng.init_state(T0), K)[0]
+        torch.cuda.synchronize()
+        got = [fn.launches - n for fn, n in zip(wrappers, before)]
+        fused = apply_fn is not model
+        assert got == [4 * B * K * fused, B * K * fused, K, 0]
+        assert state.T.shape == (B, H, W)
+        assert bool(torch.isfinite(state.T).all())
+        finals.append(state)
+    for name, tol in (("T", 1e-3), ("u", 2e-2), ("v", 2e-2)):
+        k, p = getattr(finals[0], name), getattr(finals[1], name)
+        rel = float((k - p).abs().max() / p.abs().max())
+        assert rel <= tol, (name, rel)
+    assert np.isclose(float(finals[0].t), float(finals[1].t), rtol=1e-3)

@@ -1,6 +1,6 @@
-"""The PyTorch port and chip_smoke.py import nothing of JAX, Flax or the
-JAX package (the machine with the card has none of them), and importing
-the port builds no kernel."""
+"""The PyTorch port, chip_smoke.py, bench_torch.py and the port's tools
+import nothing of JAX, Flax or the JAX package (the machine with the card
+has none of them), and importing the port builds no kernel."""
 
 import ast
 import importlib
@@ -23,7 +23,8 @@ def _imports(path: Path):
             yield node.module
 
 
-SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py"))
+           + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
            + sorted((ROOT / "tools").glob("torch_port_*.py")))
 
 

@@ -9,13 +9,17 @@ the main path's layer calls on the flagship's stage inputs (stem with its
 pyramid, the grouped branch stacks, trunk, merges 2 and 3): the largest
 max |kernel − plain| / max |plain| and each call's device time
 (``chip_smoke.py::queued_ms``); then the coupled ML_STOKES steps/s (best
-of 2 × 200 steps). Needs the card and nvcc; each variant builds into the
+of 2 × 200 steps); with ``--t-rmse``, also the fused path's 500-step
+T_rmse and trace_mae against the float64 module path
+(``tools/torch_port_accuracy.py``) for the flagship ML_STOKES rollout and
+the core-cooling Di=0.5 mode (``--modes``), with the weights of each of
+``--seeds``. Needs the card and nvcc; each variant builds into the
 git-ignored ``build/``.
 
 Usage (from the repository root, on the machine with the card)::
 
     python3 tools/layer_kernel_variants.py [--H 128] [--W 506] \\
-        current lb2 t16 current
+        current lb2 t16 lolo [--t-rmse [--seeds 0 1] [--modes ML_STOKES]]
 """
 
 from __future__ import annotations
@@ -38,6 +42,11 @@ VARIANTS = {
     # 8×16 interior tiles, one M fragment per warp: every item 128 pixels
     "t16": [("kFragsPerWarp = 2;", "kFragsPerWarp = 1;"),
             ("IT_H = 8, IT_W = 32,", "IT_H = 8, IT_W = 16,")],
+    # a fourth product, a_lo * w_lo (pass -1), before the other three
+    "lolo": [("for (int pass = 0; pass < 3; ++pass)",
+              "for (int pass = -1; pass < 3; ++pass)"),
+             ("(pass ? ", "(pass > 0 ? "),
+             ("if (pass == 1)", "if (pass == 1 || pass < 0)")],
 }
 
 
@@ -74,6 +83,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--H", type=int, default=128)
     ap.add_argument("--W", type=int, default=506)
+    ap.add_argument("--t-rmse", action="store_true",
+                    help="also each variant's 500-step T_rmse")
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0],
+                    help="weight seeds of the --t-rmse rollouts")
+    ap.add_argument("--modes", nargs="+", default=None,
+                    help="modes of the --t-rmse rollouts (default: all of "
+                         "tools/torch_port_accuracy.py's)")
     ap.add_argument("variants", nargs="*", default=["current"],
                     choices=sorted(VARIANTS))
     args = ap.parse_args()
@@ -82,7 +98,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("layer_kernel_variants: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import card_line, flagship, queued_ms, rel_err
+    from chip_smoke import (accuracy_tool, card_line, flagship, queued_ms,
+                            rel_err)
     from pbml_mantle_convection_tpu_torch.ops.branch_kernel import (
         layer_stack, layer_stack_plain, layer_stacks, layer_stacks_plain)
     from pbml_mantle_convection_tpu_torch.ops.merge_kernel import (
@@ -115,6 +132,14 @@ def main() -> int:
         "merge2": (lambda: [layer_stack(y1, fast.merge2)[0]], [y2]),
         "merge3": (lambda: [layer_stack(y2, fast.merge3)[0]], [psi]),
     }
+    if args.t_rmse:
+        # the float64 legs, once: the module path and the energy step's
+        # plain version, which no variant edits
+        acc = accuracy_tool()
+        weights = {s: acc.flagship_weights(s) for s in args.seeds}
+        refs = {(mode, s): acc.reference(weights[s], H, W, 500, mode=mode)
+                for mode in args.modes or acc.MODE_VARIANTS
+                for s in args.seeds}
     for name in args.variants:
         print(f"{name}: {use_variant(name)}")
         err, times = 0.0, []
@@ -133,6 +158,13 @@ def main() -> int:
         print(f"{name} {H}x{W}: max rel err {err:.2e}; device ms "
               f"{', '.join(times)}; {best:.1f} steps/s, T finite {ok}",
               flush=True)
+        for (mode, s), ref in (refs.items() if args.t_rmse else ()):
+            got = acc.rollout(weights[s], H, W, 500, mode=mode, path="fused",
+                              dtype=torch.float32)
+            e = acc.errors(got["T"], got["mean_T"], ref["T"], ref["mean_T"])
+            print(f"{name} {H}x{W} {mode} seed {s}: fused 500-step T_rmse "
+                  f"{e['T_rmse']:.3e}, trace_mae {e['trace_mae']:.3e}",
+                  flush=True)
         if not (err <= 1e-4 and ok):
             return 1
     return 0
