@@ -62,7 +62,28 @@ Run from the repository root, with no arguments::
    leg's launches per step are checked, and kept out of the kernels line;
 7. runs ``cli/benchmark.py --what rollout --batch 4`` at 128×506 (4B + B
    + 1 + 0 launches per step) and the same at B = 1;
-8. prints one JSON line of per-kernel numbers (launches summed over
+8. trains, through the module path with autograd as JAX trains (no kernel
+   has a backward; the train and eval steps run the Transolver's einsum
+   formulation): under PyTorch's default flags one train step's parameter
+   gradients of a small NewFluidNet and a small TransolverStructured2D, and
+   of the flagship and the serving Transolver at 128×506, B = 2, against
+   the same step in float64 (≤ ``TOL_TRAIN_GRAD``; the control with the
+   backward outside the step's float32 guard must read above it; the step
+   with cuDNN off printed beside it, and for each the parameter where the
+   error sits), every Transolver parameter with a gradient; a Transolver
+   forward with grad on outside the step goes through the slice kernels
+   (one launch each per block) with its gradients, the einsum formulation
+   recomputed in the backward, within the same bound; the slice kernels
+   refusing an input that requires grad; ``cli/benchmark.py --what train
+   --profile`` for the flagship and for ``transolver_structured`` at its
+   serving configuration, 128×506, B = 8 (both JSON lines echoed, losses
+   finite, peak memory, the step's split and the device's idle share in
+   them); the Trainer on the JAX CLI's synthetic stores at 128×506 with the
+   README's flagship flags: two epochs, a restart into a third, a fourth
+   host-resident (epoch wall times printed); no kernel wrapper launches
+   during any of the training runs (those counts stay out of the kernels
+   line);
+9. prints one JSON line of per-kernel numbers (launches summed over
    phases 3, 4, 5 and 7), the card line again, and last ``{"ok": true,
    "device": {...}}``.
 
@@ -75,6 +96,7 @@ from __future__ import annotations
 
 import collections
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1255,11 +1277,10 @@ def transolver_checks(counters, H=128, W=506, device="cuda"):
     einsum formulation, and TransolverIrregular at the same N; then the
     projections' layouts (``attention_layouts``)."""
     import torch
-    from pbml_mantle_convection_tpu_torch.models import transolver
     from pbml_mantle_convection_tpu_torch.models.registry import (
         ModelConfig, build_model)
     from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
-        slice_attention_fused, slice_attention_plain)
+        plain_slice_attention, slice_attention_fused, slice_attention_plain)
     model = build_model(ModelConfig(network="transolver_structured", H=H,
                                     W=W), device=device)
     x = transolver_input(H, W, device)
@@ -1290,11 +1311,10 @@ def transolver_checks(counters, H=128, W=506, device="cuda"):
         hook = getattr(model, f"blocks_{L - 1}").register_forward_hook(
             lambda mod, inp, out: psi.append(out))
         u, v, p = model(x)
-        transolver.slice_attention_fused = slice_attention_plain
         try:
-            up, vp, _ = model(x)
+            with plain_slice_attention():
+                up, vp, _ = model(x)
         finally:
-            transolver.slice_attention_fused = slice_attention_fused
             hook.remove()
     if p is not None or u.shape != (1, H - 2, W - 2):
         raise AssertionError(f"transolver: output shape {tuple(u.shape)}")
@@ -1441,6 +1461,324 @@ def run_batched(counters, B=4, H=128, W=506, steps=500, device="cuda"):
     return launch
 
 
+# train-step parameter gradients in float32 against float64, max |diff|
+# over max |f64| across all parameters: the conv kernels' bound; the
+# backward's convolutions in cuDNN's TF32 must land above it
+TOL_TRAIN_GRAD = 1e-4
+
+
+def train_gradients(net, x, y, net_name, leg="step"):
+    """The parameter gradients of one train step of ``net`` on (x, y),
+    and of the same step on a float64 copy; returns (max |diff| / max
+    |f64| over all parameters, the f64 copy's gradients by name, the
+    float32 net's). ``leg`` of the float32 net: "step", the train step;
+    "tf32", the control: the loss and backward outside the step's float32
+    guard, as the parent ran them (the modules' forward guard alone), so
+    the backward's convolutions follow the TF32 flag; "no_cudnn", the
+    train step with cuDNN off (PyTorch's own CUDA convolutions, float32
+    GEMMs), which tells cuDNN's share of the float32 error."""
+    import copy
+
+    import torch
+    from pbml_mantle_convection_tpu_torch.train.train_step import (
+        TrainStepConfig, make_loss_fn, make_train_step)
+    from pbml_mantle_convection_tpu_torch.train.trainer import adam_l2
+    cfg = TrainStepConfig(net=net_name, loss_scale=True,
+                          loss_derivative=True, loss_type="curl")
+    ref = copy.deepcopy(net).double()
+    cudnn = torch.backends.cudnn
+    grads = []
+    for m, dt, lg in ((net, torch.float32, leg),
+                      (ref, torch.float64, "step")):
+        batch = {"x": x.to(dt), "y": y.to(dt)}
+        enabled, cudnn.enabled = cudnn.enabled, lg != "no_cudnn"
+        try:
+            if lg == "tf32":
+                m.zero_grad(set_to_none=True)
+                make_loss_fn(m, cfg)(batch).total.backward()
+            else:
+                make_train_step(m, adam_l2(m.parameters(), 0.0), cfg)(batch)
+        finally:
+            cudnn.enabled = enabled
+        grads.append({n: q.grad for n, q in m.named_parameters()})
+    got, want = grads
+    top = max(float(g.abs().max()) for g in want.values())
+    err = max(float((got[n].double() - want[n]).abs().max()) for n in want)
+    return err / top, want, got
+
+
+def worst_parameter(got, want) -> str:
+    """The parameter with the largest max |diff| of ``got`` against
+    ``want``, that diff over its own max |want| and that max over the
+    largest of all, and the median over parameters of each one's own
+    relative error: where the error of ``train_gradients`` sits."""
+    errs = {n: float((got[n].double() - w).abs().max()) for n, w in
+            want.items()}
+    tops = {n: float(w.abs().max()) for n, w in want.items()}
+    name = max(errs, key=errs.get)
+    own = sorted(errs[n] / tops[n] for n in want if tops[n] > 0)
+    return (f"worst {name}: {errs[name] / tops[name]:.3e} of its own max "
+            f"|grad|, which is {tops[name] / max(tops.values()):.3e} of "
+            f"the largest; median over {len(own)} parameters "
+            f"{own[len(own) // 2]:.3e}")
+
+
+def kernel_route_gradients(net, x, y, counters):
+    """A Transolver's parameter gradients from a forward with grad on
+    outside the train step (as ``model(x)`` in a script runs it: the slice
+    kernels forward, the einsum formulation recomputed in the backward),
+    TF32 off for the whole of it; returns them and the slice kernels'
+    launches."""
+    from pbml_mantle_convection_tpu_torch.models.layers import float32_convs
+    from pbml_mantle_convection_tpu_torch.train.losses import fluidnet_loss
+    for fn in counters.values():
+        fn.launches = 0
+    with float32_convs(x):
+        u, v, p = net(x)
+        fluidnet_loss(u, v, p, y[..., 1:-1, 1:-1], p_pred=False,
+                      loss_scale=True, loss_derivative=True,
+                      loss_type="curl").total.backward()
+    return ({n: q.grad for n, q in net.named_parameters()},
+            {k: fn.launches for k, fn in counters.items()})
+
+
+def train_nets(device, full):
+    """Phase 8a's networks: (name, registry name, builder, x, y, H, W),
+    B = 2, seeded. Small: NewFluidNet levels 3, repeats 2 at 64×96 and a
+    2-block TransolverStructured2D (n_hidden 256) at 32×48. Full: the
+    flagship (levels 5, c_h 16, repeats 6) and the serving Transolver
+    (``ModelConfig`` defaults), both at 128×506, where cuDNN picks other
+    backward algorithms (FFT convs among them) than at the small sizes."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet
+    from pbml_mantle_convection_tpu_torch.models.registry import (
+        ModelConfig, build_model)
+    from pbml_mantle_convection_tpu_torch.models.transolver import (
+        TransolverStructured2D)
+    g = torch.Generator().manual_seed(13)
+    (H, W), (h, w) = ((128, 506), (128, 506)) if full else ((64, 96),
+                                                            (32, 48))
+    levels, repeats = (5, 6) if full else (3, 2)
+    nfn = (f"NewFluidNet{' flagship' if full else ''} levels={levels} "
+           f"c_h=16 repeats={repeats}",
+           lambda: NewFluidNet(levels=levels, c_i=7, c_h=16, c_o=1,
+                               act_fn="gelu", r_p="learned",
+                               loss_type="curl", repeats=repeats, f=5,
+                               p_pred=False, seed=0, device=device))
+    if full:
+        tsv = ("TransolverStructured2D serving n_layers=5 n_hidden=128",
+               lambda: build_model(ModelConfig(
+                   network="transolver_structured", H=h, W=w),
+                   device=device))
+    else:
+        tsv = ("TransolverStructured2D n_layers=2 n_hidden=256",
+               lambda: TransolverStructured2D(H=h, W=w, n_layers=2,
+                                              n_hidden=256, n_head=8,
+                                              slice_num=32, seed=0,
+                                              device=device))
+    return [
+        (*nfn, "newfluidnet", torch.rand(2, H, W, 7, generator=g),
+         torch.randn(2, 2, H, W, generator=g), H, W),
+        (*tsv, "transolver_structured", torch.rand(2, h * w, 7, generator=g),
+         torch.randn(2, 2, h, w, generator=g), h, w)]
+
+
+def check_train_gradients(counters, device="cuda"):
+    """Phase 8a: under PyTorch's default flags (cuDNN may run float32
+    convs in TF32), one train step's parameter gradients of a small
+    NewFluidNet and TransolverStructured2D and of the flagship and the
+    serving Transolver at 128×506 against the same step in float64 (≤
+    TOL_TRAIN_GRAD), with the TF32-backward control above the bound and
+    the step with cuDNN off printed beside them; every parameter of each
+    Transolver gets a gradient (the two biases that the curl head
+    differentiates away get rounding noise), and no kernel wrapper
+    launches. A Transolver forward with grad on outside the step launches
+    the slice kernels (one each per block) and its gradients, through the
+    einsum formulation recomputed, are held to the same bound. The slice
+    kernels refuse an input that requires grad. Leaves the flags as it
+    found them."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
+        slice_deslice, slice_pool)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    try:
+        for name, build, net_name, x, y, hh, ww in (
+                train_nets(device, False) + train_nets(device, True)):
+            t0 = time.perf_counter()
+            x, y = x.to(device), y.to(device)
+            out = {}
+            for leg in ("step", "tf32", "no_cudnn"):
+                cudnn.allow_tf32, matmul.allow_tf32 = True, False  # PyTorch's
+                for fn in counters.values():
+                    fn.launches = 0
+                out[leg] = train_gradients(build(), x, y, net_name, leg)
+                launched = {k: fn.launches for k, fn in counters.items()}
+                if any(launched.values()):
+                    raise AssertionError(f"{name}: a train step launched "
+                                         f"kernels {launched}")
+                if not cudnn.allow_tf32:
+                    raise AssertionError("the step left cuDNN's TF32 off")
+            rel, rel_ctl = out["step"][0], out["tf32"][0]
+            print(f"train step {name} {hh}x{ww} B=2 at default flags "
+                  f"(cudnn.allow_tf32=True): parameter gradients vs float64 "
+                  f"rel={rel:.3e} (tol {TOL_TRAIN_GRAD}); TF32-backward "
+                  f"control rel={rel_ctl:.3e}; the step with cuDNN off "
+                  f"rel={out['no_cudnn'][0]:.3e}")
+            for leg in ("step", "no_cudnn"):
+                print(f"  {leg}: {worst_parameter(out[leg][2], out[leg][1])}")
+            if not rel <= TOL_TRAIN_GRAD < rel_ctl:
+                raise AssertionError(f"{name}: train gradients {rel:.3e}, "
+                                     f"control {rel_ctl:.3e}")
+            if net_name.startswith("transolver"):
+                want, got = out["step"][1], out["step"][2]
+                last = max(int(n.split(".")[0][7:]) for n in got
+                           if n.startswith("blocks_"))
+                noise = {f"blocks_{last}.ln_3.bias",
+                         f"blocks_{last}.mlp2.bias"}
+                missing = [n for n, q in got.items() if q is None or (
+                    n not in noise and not float(q.abs().max()) > 0)]
+                if missing or len(got) != len(want):
+                    raise AssertionError(f"transolver parameters without a "
+                                         f"gradient on the card: {missing}")
+                print(f"train step {name}: all {len(got)} parameters have "
+                      f"a gradient, {sum(n.count('.Attn.') for n in got)} "
+                      f"of them the attention's")
+                cudnn.allow_tf32 = True
+                kgot, launched = kernel_route_gradients(build(), x, y,
+                                                        counters)
+                top = max(float(g.abs().max()) for g in want.values())
+                krel = max(float((kgot[n].double() - want[n]).abs().max())
+                           for n in want) / top
+                n_blocks = last + 1
+                print(f"{name}: a forward with grad on outside the train "
+                      f"step: slice kernel launches {launched}, parameter "
+                      f"gradients vs float64 rel={krel:.3e} (tol "
+                      f"{TOL_TRAIN_GRAD})")
+                if launched["slice_pool"] != n_blocks or \
+                        launched["slice_deslice"] != n_blocks or \
+                        not krel <= TOL_TRAIN_GRAD:
+                    raise AssertionError(f"{name}: kernels under autograd: "
+                                         f"{launched}, rel {krel:.3e}")
+            print(f"  {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+        x = torch.randn(2, 64, 16, device=device)
+        ws = torch.randn(16, 8, device=device, requires_grad=True)
+        bs, temp = torch.zeros(8, device=device), torch.ones(2, device=device)
+        tok = torch.randn(2, 8, 16, device=device)
+        for fn, args in ((slice_pool, (x, x, ws, bs, temp)),
+                         (slice_deslice, (x, tok, ws, bs, temp))):
+            n0 = fn.launches
+            try:
+                fn(*args)
+            except RuntimeError as e:
+                if "no backward" not in str(e) or fn.launches != n0:
+                    raise
+            else:
+                raise AssertionError(f"{fn.__name__} ran under autograd")
+        print("slice_pool, slice_deslice: refuse an input that requires "
+              "grad (no launch)")
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def echo_train_benchmark(argv, device="cuda"):
+    """``cli/benchmark.py --what train`` with ``argv``; echoes its JSON
+    line (printed by the CLI) and checks the loss is finite."""
+    import contextlib
+    import io
+
+    from pbml_mantle_convection_tpu_torch.cli import benchmark
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        benchmark.main(["--what", "train", "--device", device, *argv])
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(line)
+    rec = json.loads(line)
+    if not np.isfinite(rec["loss"]):
+        raise AssertionError(f"{rec['metric']}: loss {rec['loss']}")
+    return rec
+
+
+def run_trainer(nn_dir, H=128, W=506, device="cuda", model=None):
+    """Phase 8c: the port's Trainer on the JAX CLI's synthetic stores at
+    H × W with the README's flagship training flags (``-l 5 -f 16 -r 6
+    -k 5 -p learned -lt curl -b 8 -l_sc 1 -l_de 1``): two epochs
+    device-resident, a restart into a third, then a fourth with the
+    stores host-resident (the prefetch thread and its copies to the
+    card). Checks finite losses, the log, the resumed epoch and the
+    restored Adam state; prints the epoch wall times."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.cli.train import (
+        datasets, synthetic_stores)
+    from pbml_mantle_convection_tpu_torch.models.registry import ModelConfig
+    from pbml_mantle_convection_tpu_torch.sim.grid import Grid
+    from pbml_mantle_convection_tpu_torch.train.trainer import (
+        TrainConfig, Trainer, parse_loss_log)
+    mc = ModelConfig(**{**dict(network="newfluidnet", levels=5, c_h=16,
+                               repeats=6, kernel=5, r_p="learned",
+                               loss_type="curl"), **(model or {})})
+    epochs, milestones = TrainConfig.schedule_for("newfluidnet", False)
+    cfg = TrainConfig(model=mc, epochs=epochs, batch_size=8,
+                      milestones=milestones, loss_scale=True,
+                      loss_derivative=True, device=device)
+    stores = synthetic_stores(Grid(H=H, W=W, aspect=(W - 2) / (H - 2)))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for host, restart, upto in ((False, False, 2), (False, True, 3),
+                                (True, True, 4)):
+        tr = Trainer(cfg, *datasets("newfluidnet", stores, device=device,
+                                    host_resident=host),
+                     nn_dir=nn_dir, restart=restart)
+        if tr.train_data.host_resident != host:
+            raise AssertionError("residency mode")
+        if restart and not (tr.start_epoch == upto - 1
+                            and tr.optimizer.state_dict()["state"]):
+            raise AssertionError(f"restart: epoch {tr.start_epoch}, "
+                                 f"{len(tr.optimizer.state)} Adam states")
+        tr.train(upto)
+    log = parse_loss_log(tr.log_path)
+    if [e["epoch"] for e in log] != [0, 1, 2, 3] or not all(
+            np.isfinite(e["train"] + e["cv"]).all() for e in log):
+        raise AssertionError(f"trainer log: {log}")
+    with open(os.path.join(tr.nn_dir, "epoch_metrics.txt")) as f:
+        walls = [float(line.split(",")[1]) for line in f]
+    n_train = len(tr.train_data)
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+            if device == "cuda" else "not measured")
+    print(f"trainer {H}x{W} flagship B=8 (6 + 2 init), {n_train} training "
+          f"snapshots: epoch wall s {walls} (epochs 0-1 device-resident, "
+          f"2 after a restart, 3 host-resident); peak device memory "
+          f"{peak}; {time.perf_counter() - t0:.1f} s; log {log[-1]}")
+    return walls
+
+
+def run_train(counters, device="cuda"):
+    """Phase 8: training, through the module path with autograd as JAX
+    trains (no kernel of this package has a backward): the gradient
+    checks (8a), ``--what train --profile`` for the flagship and the
+    Transolver at 128×506, B = 8 (8b), the Trainer, its cv passes
+    included (8c); every kernel wrapper's count is 0 over 8b and 8c (8d;
+    kept out of the kernels line)."""
+    import tempfile
+    check_train_gradients(counters, device)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    echo_train_benchmark(["--iters", "20", "--profile"], device)
+    echo_train_benchmark(["-net", "transolver_structured", "--iters", "10",
+                          "--profile"], device)
+    print(f"--what train: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as d:
+        run_trainer(d, device=device)
+    got = {k: fn.launches for k, fn in counters.items()}
+    if any(got.values()):
+        raise AssertionError(f"training launched kernels: {got}")
+    print(f"training: kernel launches {got} (the module path, as JAX "
+          f"trains)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1494,6 +1832,9 @@ def main() -> int:
     for k, n in run_batched(counters).items():
         launch[k] += n
     print(f"batched rollout: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_train(counters)
+    print(f"train: {time.perf_counter() - t0:.1f} s")
 
     floor = launch_floor(1, ENERGY_BLOCK)
     print(f"launch floor: an empty kernel of one block of {ENERGY_BLOCK} "

@@ -8,9 +8,14 @@ the fused executor (``--raw-module``: the module), the Transolvers through
 their forward. ``--what rollout`` times ``--steps`` coupled ML_STOKES
 steps of a NewFluidNet after a short warm-up, ``--batch`` simulations
 per step (the fused executor runs them one after another, the energy
-step runs once for the batch). The inputs are the JAX CLI's: zeros for
-inference, the field of ``bench.py`` for the rollout, phase-shifted per
-simulation when B > 1; the weights come from seed 0::
+step runs once for the batch). ``--what train`` times ``--iters`` train
+steps (train/train_step.py: curl loss with loss scaling and the
+derivative term, Adam 1e-3) at ``--batch`` (default 8) after one warm-up
+step, and prints the peak device memory beside them; ``--profile`` adds
+where a step's time goes (:func:`train_profile`). The inputs are the
+JAX CLI's: zeros for inference, the field of ``bench.py`` for the
+rollout, phase-shifted per simulation when B > 1, seeded normal x and y
+for training; the weights come from seed 0::
 
     python -m pbml_mantle_convection_tpu_torch.cli.benchmark \\
         --what inference -net transolver_structured
@@ -36,6 +41,11 @@ from ..models.registry import ModelConfig, build_model
 from ..sim.engine import SimEngine
 from ..sim.grid import Grid
 from ..sim.stepper import TimeStepper
+from ..models.layers import float32_convs
+from ..train.train_step import (TrainStepConfig, make_loss_fn,
+                                make_train_step)
+from ..train.trainer import adam_l2
+from ..utils.card import card_info
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -56,17 +66,27 @@ def build_parser():
     p.add_argument("--steps", type=int, default=500)
     p.add_argument("--dtype", type=str, default="float32",
                    choices=sorted(_DTYPES))
-    p.add_argument("--batch", type=int, default=1,
-                   help="simultaneous simulations per rollout step")
+    p.add_argument("--batch", type=int, default=None,
+                   help="simultaneous simulations per rollout step "
+                        "(default 1); for --what train, the train-step "
+                        "batch size (default 8, the production size)")
     p.add_argument("--roll_forward", type=int, default=1,
-                   help="--what train (not ported)")
+                   help="--what train, unet: autoregressive unroll "
+                        "depth (multigpu.py:207-251)")
     p.add_argument("--raw-module", action="store_true",
                    help="time the plain module instead of the fused "
                         "executor")
     p.add_argument("--donate", action="store_true",
-                   help="--what train (not ported)")
+                   help="--what train: accepted for the JAX CLI's flag "
+                        "and ignored (the optimizer updates in place); "
+                        "the metric is the one without it")
+    p.add_argument("--profile", action="store_true",
+                   help="--what train: add where a step's time goes "
+                        "(forward, backward, Adam; device kernels, idle "
+                        "share, launches, top kernels)")
     p.add_argument("--remat", action="store_true",
-                   help="--what train (not ported)")
+                   help="--what train: recompute the forward in the "
+                        "backward (torch.utils.checkpoint)")
     p.add_argument("--sharded", action="store_true",
                    help="multi-card rollout (not ported)")
     p.add_argument("--device", type=str, default="cuda",
@@ -75,8 +95,6 @@ def build_parser():
 
 
 def _unported(args) -> str | None:
-    if args.what == "train":
-        return "--what train (ROADMAP queue 1 item 4)"
     if args.sharded:
         return "--sharded (ROADMAP queue 1 item 7)"
     if args.what == "rollout" and args.network != "newfluidnet":
@@ -107,8 +125,116 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def train_batch(network: str, B: int, H: int, W: int, c_i: int, dtype,
+                device) -> dict:
+    """The JAX CLI's train batch (JAX ``cli/benchmark.py:140-147``): x
+    then y drawn from ``np.random.default_rng(0)``, normal, (B, H, W, c_i)
+    and (B, 2, H, W). The Transolvers read points, so their x is the same
+    draws as (B, H·W, c_i) (the JAX CLI passes the grid shape there, which
+    its Transolver rejects)."""
+    rs = np.random.default_rng(0)
+    x = rs.normal(size=(B, H, W, c_i))
+    y = rs.normal(size=(B, 2, H, W))
+    if "transolver" in network:
+        x = x.reshape(B, H * W, c_i)
+    return {"x": torch.as_tensor(x, dtype=dtype, device=device),
+            "y": torch.as_tensor(y, dtype=dtype, device=device)}
+
+
+def train_profile(model, opt, cfg, step, batch, wall_ms, steps,
+                  device) -> dict:
+    """Where a train step's time goes: forward + loss, backward and the
+    Adam update by CUDA events over ``steps`` steps (the step's calls in
+    its order); from ``torch.profiler`` over 3 steps the device kernel ms
+    per step, the launches per step and the top kernels by time. The
+    idle share is 1 − kernel ms / ``wall_ms``, the unprofiled host time
+    per step (the profiler's own host work would inflate a profiled
+    one). Device numbers read "not measured" on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = device.type == "cuda"
+    loss_fn = make_loss_fn(model, cfg)
+    phases = {"forward_loss": 0.0, "backward": 0.0, "adam": 0.0}
+    for _ in range(steps if cuda else 0):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with float32_convs(batch["x"]):
+            opt.zero_grad(set_to_none=False)
+            ev[0].record()
+            loss = loss_fn(batch).total
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            opt.step()
+            ev[3].record()
+        torch.cuda.synchronize(device)
+        for i, k in enumerate(phases):
+            phases[k] += ev[i].elapsed_time(ev[i + 1]) / steps
+    n_prof = 3
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        for _ in range(n_prof):
+            step(batch)
+        sync(device)
+    by_kernel, launches = {}, 0
+    for e in prof.events():
+        # device kernels and copies; not the ranges that annotate them
+        # (Optimizer.step#..., which would count their kernels twice)
+        if e.device_type == torch.autograd.DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False)
+                or "#" in e.name or e.name.startswith("ProfilerStep")):
+            by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                                 + e.device_time_total / 1e3 / n_prof)
+            launches += 1
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    na = "not measured"
+    return {
+        "phase_ms": ({k: round(v, 3) for k, v in phases.items()}
+                     if cuda else na),
+        "device_kernel_ms_per_step": round(busy, 3) if cuda else na,
+        "device_idle_share": round(1.0 - busy / wall_ms, 4) if cuda else na,
+        "device_launches_per_step": launches / n_prof if cuda else na,
+        "top_kernels_ms_per_step": {k[:90]: round(v, 3) for k, v in top}}
+
+
+def train_benchmark(args, model, c_i, dtype, device) -> tuple[float, dict]:
+    """``--what train``: one warm-up step, then ``--iters`` steps ending
+    in a synchronize; with ``--profile``, then :func:`train_profile`.
+    Returns (ms per step, the JSON record)."""
+    B, H, W = args.batch, args.H, args.W
+    cfg = TrainStepConfig(net=args.network, p_pred=False, loss_scale=True,
+                          loss_derivative=True, loss_type="curl",
+                          remat=args.remat, roll_forward=args.roll_forward)
+    opt = adam_l2(model.parameters(), 1e-3)
+    step = make_train_step(model, opt, cfg)
+    batch = train_batch(args.network, B, H, W, c_i, dtype, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    br = step(batch)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        br = step(batch)
+    sync(device)
+    dt = (time.perf_counter() - t0) / args.iters
+    rf = f"_rf{args.roll_forward}" if args.roll_forward > 1 else ""
+    rf += "_remat" if args.remat else ""
+    rec = {
+        "metric": f"train_step_{args.network}_{H}x{W}_B{B}{rf}",
+        "value": round(dt * 1e3, 3), "unit": "ms",
+        "samples_per_s": round(B / dt, 2), "n_devices": 1,
+        "loss": float(br.total),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else None)}
+    if args.profile:
+        rec["profile"] = train_profile(model, opt, cfg, step, batch,
+                                       dt * 1e3, args.iters, device)
+    return dt * 1e3, rec
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.batch is None:
+        args.batch = 8 if args.what == "train" else 1
     reason = _unported(args)
     if reason is not None:
         raise NotImplementedError(f"not ported yet: {reason}")
@@ -133,6 +259,11 @@ def main(argv=None):
             and dtype == torch.float32 and unsupported_reason(model) is None)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+
+    if args.what == "train":
+        ms, rec = train_benchmark(args, model, mc.channels[0], dtype, device)
+        print(json.dumps({**rec, **card_info(device), **flags}))
+        return ms
 
     if args.what == "inference":
         x = inference_input(args.network, H, W, mc.channels[0], dtype,

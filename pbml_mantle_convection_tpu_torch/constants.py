@@ -39,6 +39,13 @@ VISC_LOG_SCALE = 8.0
 # Coordinate featurization: xc/4, yc/4 (reference: datasetio.py:630-632).
 COORD_SCALE = 4.0
 
+# Simulations the reference drops from every split (datasetio.py:33, 96).
+IGNORE_SIM_INDICES = (8, 39)
+
+# Per-snapshot time weight 6/(i+1)^0.25 (reference: datasetio.py:472).
+T_WEIGHT_NUM = 6.0
+T_WEIGHT_POW = 0.25
+
 
 def velocity_scaler(raq, fkt, fkp):
     """Convective-velocity scaling law (reference: scaler.py:4-36)."""

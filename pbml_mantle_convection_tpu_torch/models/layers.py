@@ -51,7 +51,10 @@ def _uniform(rng: np.random.Generator, shape, fan_in: int) -> nn.Parameter:
 def float32_convs(x: torch.Tensor):
     """Inside the block, cuDNN convolutions of CUDA tensors run in full
     float32 even where ``torch.backends.cudnn.allow_tf32`` is True
-    (PyTorch's default: TF32 keeps ~3 digits); the flag is restored."""
+    (PyTorch's default: TF32 keeps ~3 digits); the flag is restored.
+    cuDNN reads the flag when a convolution runs, so a backward pass
+    follows the flag of its own time: a train step runs inside one block
+    (train/train_step.py)."""
     cudnn = torch.backends.cudnn
     if not (x.is_cuda and cudnn.allow_tf32):
         yield

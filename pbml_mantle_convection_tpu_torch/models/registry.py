@@ -87,6 +87,19 @@ class ModelConfig:
             c_o -= 1
         return c_i, c_o
 
+    @property
+    def run_name(self) -> str:
+        """Experiment-identity string of the reference's directory
+        encoding (multigpu.py:1011-1055), as the JAX package writes it."""
+        f_nn = (
+            f"{self.network}_levels_{self.levels}_{self.act_fn}_{self.c_h}"
+            f"_{self.r_p}_{self.loss_type}_{self.use_symm}"
+            f"_ab{int(self.a_bound)}_r{self.repeats}_k{self.kernel}"
+            f"_fa{self.factor}_p_pred{self.p_pred}")
+        if self.blurr:
+            f_nn += "_blurr"
+        return f_nn
+
 
 def build_model(cfg: ModelConfig, seed: int = 0, device=None):
     """The port's module for ``cfg.network``, weights from ``seed``, on

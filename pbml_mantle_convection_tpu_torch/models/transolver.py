@@ -8,8 +8,11 @@ Parameter names are the Flax paths joined by dots, so
 ``utils/flax_convert.py::from_jax_params`` loads a Flax tree.
 
 Every Physics-Attention calls ``ops/slice_attention.py::
-slice_attention_fused``: on the card the two slice-attention CUDA kernels,
-on the CPU their plain versions.
+slice_attention``: on the card the two slice-attention CUDA kernels, on
+the CPU their plain versions, with or without autograd (its backward
+recomputes the einsum formulation). The train and eval steps run the
+models inside ``plain_slice_attention``, where it is the einsum
+formulation that the JAX model trains on.
 
 Weights are drawn from ``np.random.default_rng(seed)``: Dense layers
 trunc-normal(0.02) cut at ±2σ with zero bias (the reference's
@@ -25,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.curl import curl_head_valid
-from ..ops.slice_attention import slice_attention_fused
+from ..ops.slice_attention import slice_attention
 from .layers import Conv2dTorch, float32_convs, get_activation
 
 
@@ -106,10 +109,10 @@ class _PhysicsAttention(nn.Module):
         temp = self.temperature
         if self.clamp_temperature:
             temp = torch.clamp(temp, 0.1, 5.0)
-        out = slice_attention_fused(
-            fx_mid, x_mid, self.in_project_slice.weight.t(),
-            self.in_project_slice.bias, temp, self.to_q.weight.t(),
-            self.to_k.weight.t(), self.to_v.weight.t())
+        args = (fx_mid, x_mid, self.in_project_slice.weight.t(),
+                self.in_project_slice.bias, temp, self.to_q.weight.t(),
+                self.to_k.weight.t(), self.to_v.weight.t())
+        out = slice_attention(*args)
         return self.to_out(out.transpose(1, 2).reshape(B, N, -1))
 
 

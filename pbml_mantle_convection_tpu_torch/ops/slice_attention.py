@@ -29,6 +29,14 @@ with the same math types. The einsum formulation of the JAX model
 :func:`slice_attention_plain`. What bounds the kernels (bytes at the
 serving shape) and their design are written at the top of the CUDA source.
 
+Models call :func:`slice_attention`: the kernels on every forward, with
+or without autograd. The kernels have no backward of their own; under
+autograd their outputs carry a graph whose backward recomputes
+:func:`slice_attention_plain` from the saved inputs, as remat recomputes.
+Inside :func:`plain_slice_attention` (the train and eval steps) models
+run the einsum formulation itself, as the JAX model trains, and launch no
+kernel.
+
 Weights keep the JAX orientation: ws (D, G), bs (G,), wq/wk/wv (D, D)
 applied as ``x @ w``; temperature (1, heads, 1, 1), clamped by the caller
 where the model clamps it.
@@ -36,8 +44,10 @@ where the model clamps it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -162,10 +172,24 @@ def _plan(kernel, entry, device, BH, N, D, G):
     return chunks.value, per_chunk.value
 
 
+def _no_graph(name, *ts):
+    """The kernels write fresh tensors with no autograd graph: under
+    autograd they would drop the gradients of every input silently, so
+    they refuse (:func:`slice_attention` gives them a backward)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernel has no "
+            f"backward; call slice_attention (a backward through the "
+            f"einsum formulation) or slice_attention_plain under autograd, "
+            f"or run under torch.no_grad()")
+
+
 def slice_pool(fx, xm, ws, bs, temp):
     """fx, xm (B·H, N, D) or (B, H, N, D), channel stride 1; ws (D, G);
     bs (G,); temp (H,) (H = B·H for three dimensions) → num (…, G, D),
-    den (…, G): the softmax-weighted sums of fx and of the weights."""
+    den (…, G): the softmax-weighted sums of fx and of the weights.
+    Raises under autograd (an input requires grad), on any device."""
+    _no_graph("slice_pool", fx, xm, ws, bs, temp)
     if xm.device.type == "cpu":
         return slice_pool_plain(fx, xm, ws, bs, temp)
     B, H, N, D, G, xs = _check("slice_pool", xm, ws, bs, temp)
@@ -209,7 +233,9 @@ def slice_deslice(xm, tok, ws, bs, temp):
     ws (D, G); bs (G,); temp (H,) → out (…, N, D): each point's
     softmax-weighted sum of the tokens. For four dimensions the result is
     the (B, H, N, D) view of a (B, N, H·D) tensor, so that
-    ``out.transpose(1, 2).reshape(B, N, -1)`` is a view."""
+    ``out.transpose(1, 2).reshape(B, N, -1)`` is a view. Raises under
+    autograd (an input requires grad), on any device."""
+    _no_graph("slice_deslice", xm, tok, ws, bs, temp)
     if xm.device.type == "cpu":
         out = slice_deslice_plain(xm, tok, ws, bs, temp)
         return out if xm.dim() == 3 else _deslice_out(xm).copy_(out)
@@ -245,3 +271,58 @@ def slice_attention_fused(fx_mid, x_mid, ws, bs, temperature, wq, wk, wv):
     token = num / (den[..., None] + 1e-5)
     out_tok = token_attention(token, wq, wk, wv)
     return slice_deslice(xm, out_tok, ws, bs, temp)
+
+
+class _SliceAttention(torch.autograd.Function):
+    """:func:`slice_attention_fused` forward; the backward recomputes
+    :func:`slice_attention_plain` from the saved inputs and returns its
+    gradients. Saving the eight inputs, not the (B, heads, N, G) slice
+    weights, keeps the forward's memory that of the kernels."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return slice_attention_fused(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad
+        args = [a.detach().requires_grad_(n)
+                for a, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = slice_attention_plain(*args)
+        got = iter(torch.autograd.grad(
+            out, [a for a in args if a.requires_grad], grad))
+        return tuple(next(got) if n else None for n in need)
+
+
+_route = threading.local()
+
+
+@contextlib.contextmanager
+def plain_slice_attention():
+    """Inside, :func:`slice_attention` is :func:`slice_attention_plain`:
+    the einsum formulation, no kernel launch, as the JAX model trains.
+    The flag is the calling thread's; enter it inside a function that
+    ``torch.utils.checkpoint`` recomputes, which may run on the autograd
+    engine's thread."""
+    before = getattr(_route, "plain", False)
+    _route.plain = True
+    try:
+        yield
+    finally:
+        _route.plain = before
+
+
+def slice_attention(fx_mid, x_mid, ws, bs, temperature, wq, wk, wv):
+    """The Physics-Attention core as the models call it: the kernels
+    (:func:`slice_attention_fused`) on every forward; under autograd (grad
+    mode on and an input that requires grad) with a backward through
+    :func:`slice_attention_plain` recomputed; inside
+    :func:`plain_slice_attention` the einsum formulation itself."""
+    args = (fx_mid, x_mid, ws, bs, temperature, wq, wk, wv)
+    if getattr(_route, "plain", False):
+        return slice_attention_plain(*args)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _SliceAttention.apply(*args)
+    return slice_attention_fused(*args)

@@ -8,14 +8,19 @@ import math
 import torch
 
 
-def fk_viscosity(gamma: float, beta: float, z, T):
+def _log(a):
+    return torch.log(a) if isinstance(a, torch.Tensor) else math.log(a)
+
+
+def fk_viscosity(gamma, beta, z, T):
     """eta = exp(ln(gamma)*(-T) + ln(beta)*z).
 
     gamma is the temperature viscosity contrast (fkt), beta the depth
-    contrast (fkp) and ``z`` the depth coordinate (the reference passes
-    ``1 - yc``).
+    contrast (fkp): floats, or tensors that broadcast against T (one
+    value per sample, as the datasets pass them); ``z`` is the depth
+    coordinate (the reference passes ``1 - yc``).
     """
-    return torch.exp(math.log(gamma) * (0.0 - T) + math.log(beta) * z)
+    return torch.exp(_log(gamma) * (0.0 - T) + _log(beta) * z)
 
 
 def fk_viscosity_clipped(gamma: float, beta: float, z, T, lo=1e-8, hi=1.0):

@@ -184,7 +184,7 @@ def test_metric_name_matches_the_jax_cli(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--what", "train"], "ROADMAP queue 1 item 4"),
+    (["--what", "train", "-net", "unet"], "ROADMAP queue 1 item 5"),
     (["--what", "rollout", "--sharded"], "ROADMAP queue 1 item 7"),
     (["--what", "rollout", "-net", "transolver_structured"],
      "ROADMAP queue 1 item 6"),

@@ -19,8 +19,8 @@ from pbml_mantle_convection_tpu_torch.ops.epilogue_kernel import (
 from pbml_mantle_convection_tpu_torch.ops.merge_kernel import (
     trunk, trunk_plain, trunk_weights)
 from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
-    slice_attention_fused, slice_attention_plain, slice_deslice,
-    slice_deslice_plain, slice_pool, slice_pool_plain)
+    plain_slice_attention, slice_attention_fused, slice_attention_plain,
+    slice_deslice, slice_deslice_plain, slice_pool, slice_pool_plain)
 from pbml_mantle_convection_tpu_torch.physics.advection import grid_metrics
 from pbml_mantle_convection_tpu_torch.sim.grid import Grid
 
@@ -523,7 +523,7 @@ def test_cuda_slice_kernels_raise_on_bad_input(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_transolver_goes_through_the_kernels(cuda, monkeypatch):
+def test_cuda_transolver_goes_through_the_kernels(cuda):
     """A small TransolverStructured2D on the card: one launch of each
     kernel per block, and the kernel path's u, v within 1e-4 (relative to
     max |plain|) of the same model with the einsum formulation."""
@@ -537,9 +537,8 @@ def test_cuda_transolver_goes_through_the_kernels(cuda, monkeypatch):
     with torch.no_grad():
         u, v, _ = m(x)
         assert (slice_pool.launches - n0, slice_deslice.launches - m0) == (3, 3)
-        monkeypatch.setattr(transolver, "slice_attention_fused",
-                            slice_attention_plain)
-        up, vp, _ = m(x)
+        with plain_slice_attention():
+            up, vp, _ = m(x)
     for a, b in ((u, up), (v, vp)):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
@@ -624,3 +623,162 @@ def test_cuda_batched_rollout_through_the_kernels(cuda):
         rel = float((k - p).abs().max() / p.abs().max())
         assert rel <= tol, (name, rel)
     assert np.isclose(float(finals[0].t), float(finals[1].t), rtol=1e-3)
+
+
+def _train_grads(net, x, y, net_name, guarded=True):
+    """Parameter gradients of one train step of ``net`` (``guarded``:
+    through ``make_train_step``; else the loss and backward outside the
+    step's float32 guard, the modules' forward guard alone)."""
+    from pbml_mantle_convection_tpu_torch.train.train_step import (
+        TrainStepConfig, make_loss_fn, make_train_step)
+    from pbml_mantle_convection_tpu_torch.train.trainer import adam_l2
+    cfg = TrainStepConfig(net=net_name, loss_scale=True, loss_derivative=True,
+                          loss_type="curl")
+    batch = {"x": x, "y": y}
+    if guarded:
+        make_train_step(net, adam_l2(net.parameters(), 0.0), cfg)(batch)
+    else:
+        make_loss_fn(net, cfg)(batch).total.backward()
+    return {n: q.grad for n, q in net.named_parameters()}
+
+
+def _small_train_nets(cuda):
+    from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet
+    from pbml_mantle_convection_tpu_torch.models.transolver import (
+        TransolverStructured2D)
+    g = torch.Generator().manual_seed(13)
+    return [
+        ("newfluidnet",
+         lambda: NewFluidNet(levels=3, c_i=7, c_h=16, c_o=1, act_fn="gelu",
+                             r_p="learned", loss_type="curl", repeats=2,
+                             f=5, p_pred=False, seed=0, device=cuda),
+         torch.rand(2, 64, 96, 7, generator=g).to(cuda),
+         torch.randn(2, 2, 64, 96, generator=g).to(cuda)),
+        ("transolver_structured",
+         lambda: TransolverStructured2D(H=32, W=48, n_layers=2, n_hidden=256,
+                                        n_head=8, slice_num=32, seed=0,
+                                        device=cuda),
+         torch.rand(2, 32 * 48, 7, generator=g).to(cuda),
+         torch.randn(2, 2, 32, 48, generator=g).to(cuda))]
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_gradients_float32_at_default_flags(cuda,
+                                                            monkeypatch):
+    """Under PyTorch's default flags (cuDNN may run float32 convs in TF32)
+    a train step's parameter gradients of a NewFluidNet (c_h=16) and a
+    TransolverStructured2D (n_hidden=256) read ≤ 1e-4 (max |diff| over
+    max |f64|, all parameters) of the same step in float64; the same
+    gradients with the backward outside the step's float32 guard (the
+    TF32 control) read above it; the flag is restored and no kernel
+    wrapper launches."""
+    import copy
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    wrappers = (layer_stack, trunk, curl_advect_epilogue,
+                advect_diffuse_step_fused, slice_pool, slice_deslice)
+    for name, build, x, y in _small_train_nets(cuda):
+        net = build()
+        ref = _train_grads(copy.deepcopy(net).double(), x.double(),
+                           y.double(), name)
+        top = max(float(g.abs().max()) for g in ref.values())
+        before = [fn.launches for fn in wrappers]
+        errs = []
+        for guarded in (True, False):
+            got = _train_grads(copy.deepcopy(net), x, y, name, guarded)
+            errs.append(max(float((got[n].double() - g).abs().max())
+                            for n, g in ref.items()) / top)
+            assert torch.backends.cudnn.allow_tf32
+        assert [fn.launches for fn in wrappers] == before
+        assert errs[0] <= 1e-4 < errs[1], (name, errs)
+
+
+@pytest.mark.cuda
+def test_cuda_transolver_train_step_reaches_every_parameter(cuda):
+    """On the card a train step of the Transolver runs the einsum path
+    (no slice kernel launches) and every parameter gets a gradient; the
+    two biases of the last block that the curl head differentiates away
+    get rounding noise only."""
+    name, build, x, y = _small_train_nets(cuda)[1]
+    net = build()
+    n0, m0 = slice_pool.launches, slice_deslice.launches
+    grads = _train_grads(net, x, y, name)
+    assert (slice_pool.launches, slice_deslice.launches) == (n0, m0)
+    noise = {"blocks_1.ln_3.bias", "blocks_1.mlp2.bias"}
+    for n, g in grads.items():
+        assert g is not None, n
+        if n not in noise:
+            assert float(g.abs().max()) > 0, n
+    with torch.no_grad():
+        net(x)
+    assert (slice_pool.launches - n0, slice_deslice.launches - m0) == (2, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_transolver_forward_under_autograd_keeps_the_kernels(cuda):
+    """A Transolver forward on the card with grad on, outside the train
+    step (``model(x)`` in a script), launches the slice kernels, and its
+    backward (the einsum formulation recomputed) gives the train step's
+    gradients, within the train-step bound (1e-4 of max |grad|) of the
+    einsum path throughout."""
+    import copy
+
+    from pbml_mantle_convection_tpu_torch.models.layers import float32_convs
+    from pbml_mantle_convection_tpu_torch.train.losses import fluidnet_loss
+    name, build, x, y = _small_train_nets(cuda)[1]
+    net = build()
+    want = _train_grads(copy.deepcopy(net), x, y, name)
+    n0, m0 = slice_pool.launches, slice_deslice.launches
+    with float32_convs(x):
+        u, v, p = net(x)
+        fluidnet_loss(u, v, p, y[..., 1:-1, 1:-1], p_pred=False,
+                      loss_scale=True, loss_derivative=True,
+                      loss_type="curl").total.backward()
+    assert (slice_pool.launches - n0, slice_deslice.launches - m0) == (2, 2)
+    top = max(float(g.abs().max()) for g in want.values())
+    err = max(float((q.grad - want[n]).abs().max())
+              for n, q in net.named_parameters())
+    assert err <= 1e-4 * top, err / top
+
+
+@pytest.mark.cuda
+def test_cuda_slice_kernels_raise_under_autograd(cuda):
+    fx, xm, ws, bs, temp, tok = _slice_inputs(2, 100, 8, 16, F32, cuda)
+    n0, m0 = slice_pool.launches, slice_deslice.launches
+    xm = xm.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        slice_pool(fx, xm, ws, bs, temp)
+    with pytest.raises(RuntimeError, match="no backward"):
+        slice_deslice(xm, tok, ws, bs, temp)
+    assert (slice_pool.launches, slice_deslice.launches) == (n0, m0)
+    with torch.no_grad():
+        slice_pool(fx, xm, ws, bs, temp)
+    assert slice_pool.launches == n0 + 1
+
+
+@pytest.mark.cuda
+def test_cuda_host_resident_batches_equal_device_resident(cuda):
+    """The host-resident mode (a prefetch thread gathers rows from a numpy
+    store and copies them to the card) gives the device-resident mode's
+    batches bit for bit, noise included, over two epochs."""
+    import numpy as np
+    from pbml_mantle_convection_tpu_torch.constants import SimParams
+    from pbml_mantle_convection_tpu_torch.data.dataset import SnapshotDataset
+    from pbml_mantle_convection_tpu_torch.data.synthetic import (
+        synthetic_store)
+    store = synthetic_store(Grid(H=128, W=506, aspect=504 / 126),
+                            params_list=[SimParams(3.0, 1e8, 10.0),
+                                         SimParams(1.0, 1e7, 3.0)],
+                            n_snapshots=12, with_p=True)
+    kw = dict(p_pred=True, noise=1e-5, device=cuda)
+    dev = SnapshotDataset(store, host_resident=False, **kw)
+    host = SnapshotDataset(store, host_resident=True, prefetch=3, **kw)
+    r1, r2 = np.random.default_rng(4), np.random.default_rng(4)
+    n = 0
+    for _ in range(2):
+        for a, b in zip(dev.epoch_batches(r1, 5), host.epoch_batches(r2, 5)):
+            assert a["x"].is_cuda and b["x"].is_cuda
+            for k in a:
+                assert torch.equal(a[k], b[k]), k
+            n += 1
+    assert n == 2 * (24 // 5)
