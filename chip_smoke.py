@@ -8,7 +8,8 @@ Run from the repository root, with no arguments::
 1. prints the card's name and power limit, builds the CUDA kernels from
    ``pbml_mantle_convection_tpu_torch/csrc`` (nvcc, sm_90a), prints the
    build time, and checks with ``cuobjdump --dump-sass`` that the layer
-   kernels of ``layer_stack`` and ``trunk`` and every ``slice_pool_kernel``
+   kernels of ``layer_stack`` and ``trunk`` (learned-boundary and
+   zero-padded instances) and every ``slice_pool_kernel``
    and ``slice_deslice_kernel`` instance hold TF32 tensor-core MMAs (the
    slice kernels' in threes: 3xTF32);
    then, under PyTorch's default flags (TF32 convs allowed), holds a small
@@ -16,9 +17,12 @@ Run from the repository root, with no arguments::
    in float64 and times the float32 guard of the port's convs;
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the flagship's 128×506 rollout gives it (TF32 off), and times
-   both; the two energy kernels (``curl_advect_epilogue``,
-   ``advect_diffuse_step_fused``) also at zero velocity (dt must be
-   dt_diffuse to the bit), for the same bits on a second call, for their
+   both; ``layer_stack`` and ``trunk`` also in their zero-padded instance
+   (the JAX kernels' ``learned=False``) at the shapes of the flagship with
+   ``-pad zeros``, timed beside the learned instance; the two energy
+   kernels (``curl_advect_epilogue``, ``advect_diffuse_step_fused``)
+   also at zero velocity (dt must be dt_diffuse to the bit), for the
+   same bits on a second call, for their
    device kernels per call (``torch.profiler``: one each), in a CUDA graph
    replayed on new inputs (the eager bits), device-only beside their byte
    bound and the launch floor (an empty kernel of the same grid), and for
@@ -29,7 +33,11 @@ Run from the repository root, with no arguments::
    256×256 with ``bench_torch.main()`` (20 warm-up steps, best of 3 × 500;
    it echoes its JSON line and checks that T stays finite) — checks the
    kernel launch counts per step (4 + 1 + 1 + 0), and compares 10 steps
-   of the kernel path with the plain-PyTorch module path;
+   of the kernel path with the plain-PyTorch module path; then the
+   flagship with ``-pad zeros`` (the zero instances) through
+   ``cli/benchmark.py --what rollout -pad zeros`` at 128×506 and 256²,
+   B = 1 and 4 (4 + 1 + 1 + 0 and 4B + B + 0 + 1 launches per step), and
+   10 of its steps against its module path;
 4. drives the other engine modes at 128×506 in float32 — GAIA (converged
    PT Stokes solve, ``make_stokes_fn`` defaults), GAIA-skip3, ML_PRE with
    the flagship (pre_iter=200) and ML_STOKES with core cooling, Di=0.5 and
@@ -58,8 +66,9 @@ Run from the repository root, with no arguments::
    flagship ML_STOKES rollout (fused, module float32 and module TF32
    against the float64 module path with the energy step's plain version;
    the fused T-RMSE must stay below ``ACC_T_RMSE`` and the TF32 control
-   must not) and the core-cooling Di=0.5 mode (printed, finite); each
-   leg's launches per step are checked, and kept out of the kernels line;
+   must not), the core-cooling Di=0.5 mode (printed, finite) and the
+   ``-pad zeros`` flagship (fused below ``ACC_T_RMSE``); each leg's
+   launches per step are checked, and kept out of the kernels line;
 7. runs ``cli/benchmark.py --what rollout --batch 4`` at 128×506 (4B + B
    + 1 + 0 launches per step) and the same at B = 1;
 8. trains, through the module path with autograd as JAX trains (no kernel
@@ -70,7 +79,9 @@ Run from the repository root, with no arguments::
    the same step in float64 (≤ ``TOL_TRAIN_GRAD``; the control with the
    backward outside the step's float32 guard must read above it; the step
    with cuDNN off printed beside it, and for each the parameter where the
-   error sits), every Transolver parameter with a gradient; a Transolver
+   error sits), every Transolver parameter with a gradient; the
+   flagship's readings of ROADMAP §3 fault 7 at B = 2 and 8, weight seeds
+   0-2, each ≤ ``TOL_FAULT7``; a Transolver
    forward with grad on outside the step goes through the slice kernels
    (one launch each per block) with its gradients, the einsum formulation
    recomputed in the backward, within the same bound; the slice kernels
@@ -83,8 +94,20 @@ Run from the repository root, with no arguments::
    host-resident (epoch wall times printed); no kernel wrapper launches
    during any of the training runs (those counts stay out of the kernels
    line);
-9. prints one JSON line of per-kernel numbers (launches summed over
-   phases 3, 4, 5 and 7), the card line again, and last ``{"ok": true,
+9. runs the U-Net at ``unet_roll1``'s width (levels 4, c_h 32, repeats
+   2, k 5, replicate padding) at 128×506: ``cli/benchmark.py --what
+   inference``, ``--what rollout`` and ``--what train`` (B = 8) with
+   their JSON lines, 20 coupled steps in float32 against float64 (each
+   step from the float64 state, the free-running trajectory for its
+   first steps, and a float64 trajectory from a start 1e-7 off as the
+   witness that the dynamics part them later), train-step gradients
+   against float64 at B = 2 with the TF32 control and at B = 8 for
+   weight seeds 0-2; no kernel wrapper launches (the U-Net runs no
+   kernel, on JAX neither);
+10. prints one JSON line of per-kernel numbers (launches summed over
+   phases 3, 4, 5 and 7; the layer kernels' zero instance, its launches
+   from phase 3c alone, under ``zero_instance``, the top-level counts
+   being the learned instance's), the card line again, and last ``{"ok": true,
    "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no result
@@ -282,19 +305,29 @@ def bound_ms(n_bytes: float, flops: float, tensor_cores: bool = False
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def stack_work(sw, H, W, n_pyr=0):
-    """(bytes, flops) of one layer_stack over an H × W field: inputs read
-    once, outputs written once; conv FMAs as 2 flops, + bias, GroupNorm
-    (~4/elem) and GELU (~6/elem), 4 flops per pooled output (the n_pyr
-    successive pools of the output)."""
+def conv_taps(conv) -> int:
+    """Taps per output pixel of a layer's own conv (k × k), whatever the
+    kernel packs it as: the zero-padded flagship's 3×3 merge convs run
+    as 5×5 kernels with a zero ring, 25/9 of the MACs the function
+    needs."""
+    w = conv.kernels()[0] if hasattr(conv, "kernels") else conv.weight
+    return w.shape[-2] * w.shape[-1]
+
+
+def stack_work(sw, H, W, n_pyr=0, taps=25):
+    """(bytes, flops) of one layer_stack over an H × W field whose convs
+    have ``taps`` taps (:func:`conv_taps`): inputs read once, outputs
+    written once; conv FMAs as 2 flops, + bias, GroupNorm (~4/elem) and
+    GELU (~6/elem), 4 flops per pooled output (the n_pyr successive
+    pools of the output)."""
     hw = H * W
     flops = 0.0
     c_in = sw.c_in
     n_w = 0
-    for _ in range(sw.R):
-        flops += (2 * c_in * 25 + 1 + 4 * sw.use_gn + 6 * sw.use_act) \
+    for ws in sw.kernels:     # 9 weight classes (learned) or 1 (zeros)
+        flops += (2 * c_in * taps + 1 + 4 * sw.use_gn + 6 * sw.use_act) \
             * sw.c_o * hw
-        n_w += 9 * c_in * 25 * sw.c_o
+        n_w += len(ws) * c_in * taps * sw.c_o
         c_in = sw.c_o
     n_pool = sum(sw.c_o * (H >> l) * (W >> l) for l in range(1, n_pyr + 1))
     flops += 4 * n_pool
@@ -305,7 +338,8 @@ def stack_work(sw, H, W, n_pyr=0):
 
 def check_sass(so) -> None:
     """The layer kernels (``blc_fused_kernel``, in layer_stack.cu's and in
-    trunk.cu's objects) and the slice kernels' tensor-core instances
+    trunk.cu's objects, each in its learned-boundary and its zero-padded
+    instance) and the slice kernels' tensor-core instances
     (``slice_pool_kernel`` and ``slice_deslice_kernel``, one per storage
     type and G bucket) run their products on the tensor cores: their SASS
     in the built library holds TF32 ``HMMA`` (or ``HGMMA``) instructions,
@@ -342,13 +376,20 @@ def check_sass(so) -> None:
                   f"MMA instructions")
             continue
         src = "trunk.cu" if "trunk_cu" in name else "layer_stack.cu"
-        t = re.search(r"blc_fused_kernelILi(\d+)ELb(\d)", name)
-        inst = f"<{t.group(1)}, {t.group(2)}>" if t else name
+        t = re.search(r"blc_fused_kernelILi(\d+)ELb(\d)ELb(\d)E", name)
+        inst = (f"<{t.group(1)}, {t.group(2)}, {t.group(3)}> ("
+                f"{'zero-padded' if t.group(3) == '1' else 'learned'})"
+                if t else name)
         print(f"sass: {src} blc_fused_kernel{inst}: {n} TF32 tensor-core "
               f"MMA instructions")
-    layer = [n for k, n in counts.items() if "blc_fused_kernel" in k]
-    if len(layer) < 2 or not all(layer):
-        raise AssertionError(f"layer kernels without TF32 MMA: {counts}")
+    layer = {k: n for k, n in counts.items() if "blc_fused_kernel" in k}
+    for zero in ("0", "1"):
+        got = [n for k, n in layer.items()
+               if re.search(rf"ELb\dELb{zero}E", k)]
+        if len(got) < 2 or not all(got):
+            which = "zero-padded" if zero == "1" else "learned"
+            raise AssertionError(f"layer kernels ({which} instance) "
+                                 f"without TF32 MMA: {layer}")
     for kernel in ("slice_pool_kernel", "slice_deslice_kernel"):
         got = {k: n for k, n in slices.items() if k.startswith(kernel)}
         if len(got) < 9 or not all(n and n % 3 == 0 for n in got.values()):
@@ -361,7 +402,7 @@ def rel_err(a, b) -> tuple[float, float]:
     return d, d / max(float(b.abs().max()), 1e-30)
 
 
-def flagship(H, W, device):
+def flagship(H, W, device, r_p="learned"):
     from pbml_mantle_convection_tpu_torch.constants import SimParams
     from pbml_mantle_convection_tpu_torch.models.fast_path import (
         FastNewFluidNet)
@@ -372,7 +413,7 @@ def flagship(H, W, device):
     grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2) if H != W else 1.0)
     params = SimParams(raq=3.0, fkt=1e8, fkp=10.0)
     model = NewFluidNet(levels=5, c_i=7, c_h=16, c_o=1, act_fn="gelu",
-                        r_p="learned", loss_type="curl", repeats=6, f=5,
+                        r_p=r_p, loss_type="curl", repeats=6, f=5,
                         p_pred=False, seed=0, device=device)
     fast = FastNewFluidNet(model, H, W)
 
@@ -386,17 +427,41 @@ def flagship(H, W, device):
 
 def check_kernels(H, W):
     """Phase 2: every kernel against its plain version at main-path
-    shapes. Returns the per-kernel records (launches filled later)."""
+    shapes, the layer kernels in both instances (the zero-padded one at
+    the shapes of the ``-pad zeros`` flagship), timed side by side.
+    Returns the per-kernel records (launches filled later); the zero
+    instance's numbers go under ``zero_instance`` in the layer kernels'
+    records."""
+    rec, eng, psi, T = check_layer_kernels(H, W)
+    zero = check_layer_kernels(H, W, "zeros")[0]
+    for k in ("layer_stack", "trunk"):
+        rec[k]["zero_instance"] = zero[k]
+        print(f"{k}: zero-padded instance {zero[k]['queued_ms']:.4f} ms "
+              f"device only against the learned instance's "
+              f"{rec[k]['queued_ms']:.4f} ms "
+              f"({zero[k]['queued_ms'] / rec[k]['queued_ms']:.3f}x), bound "
+              f"{zero[k]['bound_ms']:.4f} ms (the model's 3×3 merges at 9 "
+              f"taps; the kernel runs them as 5×5, 25/9 of their MACs)")
+    # the energy kernels
+    rec["curl_advect_epilogue"] = check_epilogue(eng, psi[0], T[0])
+    rec["advect_diffuse_step_fused"] = check_advect(eng, T)
+    return rec
+
+
+def check_layer_kernels(H, W, r_p="learned"):
+    """``layer_stack`` and ``trunk`` of the flagship with padding ``r_p``
+    (the layer kernels' learned-boundary or zero-padded instance) against
+    their plain versions at the main path's shapes, timed. Returns (their
+    records, the engine, the plain ψ, T)."""
     import torch
     import torch.nn.functional as F
     from pbml_mantle_convection_tpu_torch.ops.branch_kernel import (
         layer_stack, layer_stack_plain, layer_stacks, layer_stacks_plain)
-    from pbml_mantle_convection_tpu_torch.ops.epilogue_kernel import (
-        curl_advect_epilogue, curl_advect_epilogue_plain)
     from pbml_mantle_convection_tpu_torch.ops.merge_kernel import (
         trunk, trunk_plain)
 
-    _, fast, engine, T0 = flagship(H, W, "cuda")
+    _, fast, engine, T0 = flagship(H, W, "cuda", r_p)
+    tag = f"[{r_p}]"
     eng = engine(fast)
     T = eng.init_state(T0).T
     eng.stepper._bound_fast()          # binds the static input channels
@@ -411,8 +476,15 @@ def check_kernels(H, W):
     y2, _ = layer_stack_plain(y1, fast.merge2)
     psi, _ = layer_stack_plain(y2, fast.merge3)
 
-    def work(sws, inputs, n_pyr=0):
-        w = [stack_work(sw, i.shape[1], i.shape[2], n_pyr=n_pyr)
+    # the model's own kernel sizes, not the 5×5 the kernel packs
+    m = fast.m
+    taps = {n: conv_taps(getattr(m, n)) for n in ("conv_1", "conv_2",
+                                                  "conv_3")}
+    taps["fluid"] = conv_taps(m.conv_0.conv)
+
+    def work(sws, inputs, n_pyr=0, k="fluid"):
+        w = [stack_work(sw, i.shape[1], i.shape[2], n_pyr=n_pyr,
+                        taps=taps[k])
              for sw, i in zip(sws, inputs)]
         return sum(a for a, _ in w), sum(f for _, f in w)
 
@@ -430,10 +502,10 @@ def check_kernels(H, W):
          work(fast.branches, xs)),
         ("merge2", lambda: [layer_stack(y1, fast.merge2)[0]],
          lambda: [layer_stack_plain(y1, fast.merge2)[0]],
-         work([fast.merge2], [y1])),
+         work([fast.merge2], [y1], k="conv_2")),
         ("merge3", lambda: [layer_stack(y2, fast.merge3)[0]],
          lambda: [layer_stack_plain(y2, fast.merge3)[0]],
-         work([fast.merge3], [y2])),
+         work([fast.merge3], [y2], k="conv_3")),
     ]
     rec = {}
     tot = dict(ms=0.0, queued_ms=0.0, plain_ms=0.0, err=0.0, bytes=0.0,
@@ -448,15 +520,16 @@ def check_kernels(H, W):
         pms = cuda_ms(plain, n=5)
         bms, by = bound_ms(nb, fl, tensor_cores=True)
         sms, sby = bound_ms(nb, fl)
-        print(f"layer_stack {name:8s} fields {[tuple(t.shape) for t in ref]}"
+        print(f"layer_stack{tag} {name:8s} fields "
+              f"{[tuple(t.shape) for t in ref]}"
               f": max_abs_err={err:.3e} rel={rel:.3e} (tol "
               f"{TOL['layer_stack']}) repeatable={same} ms={ms:.4f} "
               f"(device only, launches queued: {qms:.4f}) plain_ms="
               f"{pms:.4f} bound_ms={bms:.4f} ({by}, 3xTF32 tensor cores) "
               f"simt_bound_ms={sms:.4f} ({sby}, float32 SIMT)")
         if not (rel <= TOL["layer_stack"] and same):
-            raise AssertionError(f"layer_stack {name} disagrees: {rel}, "
-                                 f"repeatable {same}")
+            raise AssertionError(f"layer_stack{tag} {name} disagrees: "
+                                 f"{rel}, repeatable {same}")
         tot["ms"] += ms
         tot["queued_ms"] += qms
         tot["plain_ms"] += pms
@@ -465,7 +538,8 @@ def check_kernels(H, W):
         tot["err"] = max(tot["err"], err)
     bms, by = bound_ms(tot["bytes"], tot["flops"], tensor_cores=True)
     sms, _ = bound_ms(tot["bytes"], tot["flops"])
-    print(f"layer_stack summed over the {len(calls)} calls of a step: ms="
+    print(f"layer_stack{tag} summed over the {len(calls)} calls of a step: "
+          f"ms="
           f"{tot['ms']:.4f} (device only {tot['queued_ms']:.4f}) bound_ms="
           f"{bms:.4f} ({by}, 3xTF32) simt_bound_ms={sms:.4f}")
     rec["layer_stack"] = dict(max_abs_err=tot["err"], ms=tot["ms"],
@@ -494,12 +568,12 @@ def check_kernels(H, W):
                 for a, c in zip(interp(), outs[1:]))
     c_h = fast.trunk.merge.c_o
     n_coarse = sum(c.numel() for c in outs[1:])
-    nb, fl = stack_work(fast.trunk.merge, H, W)
+    nb, fl = stack_work(fast.trunk.merge, H, W, taps=taps["conv_1"])
     nb += 4 * n_coarse - 4 * c_h * len(outs[1:]) * H * W
     fl += 40 * c_h * len(outs[1:]) * H * W
     bms, by = bound_ms(nb, fl, tensor_cores=True)
     sms, sby = bound_ms(nb, fl)
-    print(f"trunk c_in={fast.trunk.merge.c_in} {H}x{W}: max_abs_err="
+    print(f"trunk{tag} c_in={fast.trunk.merge.c_in} {H}x{W}: max_abs_err="
           f"{err:.3e} rel={rel:.3e} (tol {TOL['trunk']}) repeatable={same} "
           f"ms={ms:.4f} (device only, launches queued: {qms:.4f}) "
           f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}, 3xTF32 tensor "
@@ -508,15 +582,12 @@ def check_kernels(H, W):
           f"upsampling only: not the same function; F.interpolate vs "
           f"resize matrices rel {e_int:.2e})")
     if not (rel <= TOL["trunk"] and same):
-        raise AssertionError(f"trunk disagrees: {rel}, repeatable {same}")
+        raise AssertionError(f"trunk{tag} disagrees: {rel}, repeatable "
+                             f"{same}")
     rec["trunk"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                         bound_by=by, library_ms=lib_ms, queued_ms=qms,
                         simt_bound_ms=sms)
-
-    # the energy kernels
-    rec["curl_advect_epilogue"] = check_epilogue(eng, psi[0], T[0])
-    rec["advect_diffuse_step_fused"] = check_advect(eng, T)
-    return rec
+    return rec, eng, psi, T
 
 
 def check_epilogue(eng, psi, T):
@@ -704,9 +775,10 @@ def run_main_path(counters):
     return launch
 
 
-def compare_paths(H, W, K=10):
-    """Phase 3b: K steps of the kernel path vs the plain module path."""
-    model, fast, engine, T0 = flagship(H, W, "cuda")
+def compare_paths(H, W, K=10, r_p="learned"):
+    """Phase 3b: K steps of the kernel path vs the plain module path of
+    the flagship with padding ``r_p``."""
+    model, fast, engine, T0 = flagship(H, W, "cuda", r_p)
     finals = []
     for apply_fn in (fast, model):
         eng = engine(apply_fn)
@@ -714,10 +786,55 @@ def compare_paths(H, W, K=10):
     sk, sp = finals
     for name in ("T", "u", "v"):
         err, rel = rel_err(getattr(sk, name), getattr(sp, name))
-        print(f"{K} steps {H}x{W} kernel vs plain path: {name} "
+        print(f"{K} steps {H}x{W} [{r_p}] kernel vs plain path: {name} "
               f"max_abs_err={err:.3e} rel={rel:.3e} (tol {TOL_ROLLOUT[name]})")
         if not rel <= TOL_ROLLOUT[name]:
             raise AssertionError(f"kernel path diverges from plain: {name}")
+
+
+def rollout_launches(B, n):
+    """Kernel wrapper launches of ``n`` fused flagship steps of B
+    simulations: 4 + 1 + 1 + 0 per step at B = 1 (the epilogue), 4B + B +
+    0 + 1 at B > 1 (one batched energy step)."""
+    if B > 1:
+        return {"layer_stack": 4 * B * n, "trunk": B * n,
+                "advect_diffuse_step_fused": n, "curl_advect_epilogue": 0}
+    return {"layer_stack": 4 * n, "trunk": n,
+            "advect_diffuse_step_fused": 0, "curl_advect_epilogue": n}
+
+
+def run_zero_path(counters, steps=500, device="cuda"):
+    """Phase 3c: the ``-pad zeros`` flagship (the layer kernels' zero
+    instance) through ``cli/benchmark.py --what rollout -pad zeros`` at
+    128×506 and 256², B = 1 and B = 4 (launches per step asserted; every
+    count set to 0 just before each run and read just after), then 10
+    steps of its kernel path vs its module path. Returns the launch
+    counts of the runs."""
+    from pbml_mantle_convection_tpu_torch.cli import benchmark
+    launch = {k: 0 for k in counters}
+    for H, W in ((128, 506), (256, 256)):
+        for b in (1, 4):
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            sps = benchmark.main(["--what", "rollout", "-pad", "zeros",
+                                  "--batch", str(b), "--H", str(H),
+                                  "--W", str(W), "--steps", str(steps),
+                                  "--device", device])
+            got = {k: fn.launches for k, fn in counters.items()}
+            n = steps + min(steps, 20)                 # timed + warm-up
+            want = rollout_launches(b, n)
+            if {k: got[k] for k in want} != want:
+                raise AssertionError(f"-pad zeros {H}x{W} B={b}: launches "
+                                     f"{got}, want {want}")
+            print(f"-pad zeros rollout {H}x{W} B={b}: {sps:.2f} steps/s, "
+                  f"{b * sps:.2f} sim-steps/s, launches "
+                  f"{ {k: got[k] / n for k in want} } per step, "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for k in launch:
+                launch[k] += got[k]
+    compare_paths(128, 506, r_p="zeros")
+    return launch
 
 
 def mode_engines(H, W, device="cuda"):
@@ -1379,9 +1496,10 @@ def run_accuracy(H=128, W=506, steps=500, device="cuda"):
     """Phase 6: the 500-step T-RMSE against the float64 module path
     (``tools/torch_port_accuracy.py``): the flagship ML_STOKES rollout,
     whose fused path must read T_rmse < ACC_T_RMSE and whose TF32 control
-    must not, and the core-cooling Di=0.5 mode, printed and checked
-    finite. Each leg's launches per step are checked (``leg_launches``);
-    none of them goes into the kernels line."""
+    must not, the core-cooling Di=0.5 mode, printed and checked finite,
+    and the ``-pad zeros`` flagship, whose fused path must read below
+    ACC_T_RMSE too. Each leg's launches per step are checked
+    (``leg_launches``); none of them goes into the kernels line."""
     acc = accuracy_tool()
     weights = acc.flagship_weights(0)
     recs = {}
@@ -1408,6 +1526,28 @@ def run_accuracy(H=128, W=506, steps=500, device="cuda"):
               f"{rec['f64_seconds']:.2f} s, launches per step checked, "
               f"{time.perf_counter() - t0:.1f} s")
         recs[mode] = rec
+    # the -pad zeros flagship (the layer kernels' zero instance)
+    t0 = time.perf_counter()
+    arch = {**acc.ARCH, "r_p": "zeros"}
+    zrec = acc.measure(acc.flagship_weights(0, arch), H, W, steps,
+                       "ML_STOKES", device=device, arch=arch)
+    print(json.dumps(zrec))
+    for name in acc.MODE_VARIANTS["ML_STOKES"]:
+        path = acc.VARIANTS[name][0]
+        if zrec[name]["launches_per_step"] != leg_launches("ML_STOKES",
+                                                           path):
+            raise AssertionError(f"accuracy -pad zeros {name}: launches "
+                                 f"{zrec[name]['launches_per_step']}")
+    zfused = zrec["fused"]["T_rmse"]
+    print(f"accuracy {H}x{W} -pad zeros ML_STOKES: {steps} steps, fused "
+          f"T_rmse {zfused:.3e} (bound {ACC_T_RMSE}), module_f32 "
+          f"{zrec['module_f32']['T_rmse']:.3e}, TF32 control "
+          f"{zrec['module_tf32']['T_rmse']:.3e}, fused "
+          f"{zrec['fused']['steps_per_s']:.1f} steps/s, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not zfused < ACC_T_RMSE:
+        raise AssertionError(f"accuracy -pad zeros: fused T_rmse "
+                             f"{zfused:.3e} >= {ACC_T_RMSE}")
     flag, di = recs["ML_STOKES"], recs[acc.DI_MODE]
     fused, tf32 = flag["fused"]["T_rmse"], flag["module_tf32"]["T_rmse"]
     if not fused < ACC_T_RMSE:
@@ -1440,11 +1580,7 @@ def run_batched(counters, B=4, H=128, W=506, steps=500, device="cuda"):
                                  "--device", device])
         got = {k: fn.launches for k, fn in counters.items()}
         n = steps + min(steps, 20)                   # timed + warm-up
-        want = ({"layer_stack": 4 * b * n, "trunk": b * n,
-                 "advect_diffuse_step_fused": n, "curl_advect_epilogue": 0}
-                if b > 1 else
-                {"layer_stack": 4 * n, "trunk": n,
-                 "advect_diffuse_step_fused": 0, "curl_advect_epilogue": n})
+        want = rollout_launches(b, n)
         if {k: got[k] for k in want} != want:
             raise AssertionError(f"rollout B={b}: launches {got}, "
                                  f"want {want}")
@@ -1467,7 +1603,7 @@ def run_batched(counters, B=4, H=128, W=506, steps=500, device="cuda"):
 TOL_TRAIN_GRAD = 1e-4
 
 
-def train_gradients(net, x, y, net_name, leg="step"):
+def train_gradients(net, x, y, net_name, leg="step", extra=None):
     """The parameter gradients of one train step of ``net`` on (x, y),
     and of the same step on a float64 copy; returns (max |diff| / max
     |f64| over all parameters, the f64 copy's gradients by name, the
@@ -1476,7 +1612,8 @@ def train_gradients(net, x, y, net_name, leg="step"):
     guard, as the parent ran them (the modules' forward guard alone), so
     the backward's convolutions follow the TF32 flag; "no_cudnn", the
     train step with cuDNN off (PyTorch's own CUDA convolutions, float32
-    GEMMs), which tells cuDNN's share of the float32 error."""
+    GEMMs), which tells cuDNN's share of the float32 error. ``extra``:
+    more batch entries (the U-Net's ``paras`` and ``yc``)."""
     import copy
 
     import torch
@@ -1490,7 +1627,8 @@ def train_gradients(net, x, y, net_name, leg="step"):
     grads = []
     for m, dt, lg in ((net, torch.float32, leg),
                       (ref, torch.float64, "step")):
-        batch = {"x": x.to(dt), "y": y.to(dt)}
+        batch = {k: t.to(dt) for k, t in
+                 {"x": x, "y": y, **(extra or {})}.items()}
         enabled, cudnn.enabled = cudnn.enabled, lg != "no_cudnn"
         try:
             if lg == "tf32":
@@ -1678,23 +1816,31 @@ def check_train_gradients(counters, device="cuda"):
                 raise AssertionError(f"{fn.__name__} ran under autograd")
         print("slice_pool, slice_deslice: refuse an input that requires "
               "grad (no launch)")
+        cudnn.allow_tf32, matmul.allow_tf32 = True, False        # PyTorch's
+        fault7_readings(device)
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
-def echo_train_benchmark(argv, device="cuda"):
-    """``cli/benchmark.py --what train`` with ``argv``; echoes its JSON
-    line (printed by the CLI) and checks the loss is finite."""
+def echo_benchmark(argv, device="cuda"):
+    """``cli/benchmark.py`` with ``argv``; echoes its JSON line (printed
+    by the CLI) and returns it."""
     import contextlib
     import io
 
     from pbml_mantle_convection_tpu_torch.cli import benchmark
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        benchmark.main(["--what", "train", "--device", device, *argv])
+        benchmark.main([*argv, "--device", device])
     line = buf.getvalue().strip().splitlines()[-1]
     print(line)
-    rec = json.loads(line)
+    return json.loads(line)
+
+
+def echo_train_benchmark(argv, device="cuda"):
+    """``cli/benchmark.py --what train`` with ``argv``; echoes its JSON
+    line and checks the loss is finite."""
+    rec = echo_benchmark(["--what", "train", *argv], device)
     if not np.isfinite(rec["loss"]):
         raise AssertionError(f"{rec['metric']}: loss {rec['loss']}")
     return rec
@@ -1752,6 +1898,222 @@ def run_trainer(nn_dir, H=128, W=506, device="cuda", model=None):
           f"2 after a restart, 3 host-resident); peak device memory "
           f"{peak}; {time.perf_counter() - t0:.1f} s; log {log[-1]}")
     return walls
+
+
+# train/experiments.py::unet_roll1's network: levels 4, c_h 32, repeats 2,
+# k 5, replicate padding (curl, a_bound 10: ModelConfig's defaults)
+UNET_ROLL1 = dict(levels=4, c_h=32, repeats=2, kernel=5, r_p="replicate")
+
+
+def unet_argv(H, W):
+    c = UNET_ROLL1
+    return ["-net", "unet", "-l", str(c["levels"]), "-f", str(c["c_h"]),
+            "-r", str(c["repeats"]), "-k", str(c["kernel"]), "-pad",
+            c["r_p"], "--H", str(H), "--W", str(W)]
+
+
+def unet_model(H, W, device, seed=0):
+    from pbml_mantle_convection_tpu_torch.models.registry import (
+        ModelConfig, build_model)
+    return build_model(ModelConfig(network="unet", loss_type="curl",
+                                   p_pred=False, H=H, W=W, **UNET_ROLL1),
+                       seed=seed, device=device)
+
+
+# the U-Net's rollout against float64: the steps over which the free-running
+# float32 trajectory stays within TOL_ROLLOUT of the float64 one, and the
+# start of a second float64 trajectory UNET_NUDGE off the first (seeded):
+# the witness that the dynamics alone widen a gap over the run by as much
+# as the float32 trajectory's grows (within UNET_WITNESS_FACTOR)
+UNET_TOGETHER = 5
+UNET_NUDGE = 1e-7
+UNET_WITNESS_FACTOR = 10.0
+
+
+def unet_rollouts(net, grid, steps, device="cuda"):
+    """``steps`` coupled U-Net steps from the CLI's initial field: float64,
+    float32 free-running, float64 from a start UNET_NUDGE off, and each
+    float32 step taken from the float64 state. Returns the per-step rel
+    gaps {"free": T, u, v of float32 vs float64; "nudged": T of the
+    nudged float64 vs float64} and the forced steps' worst rel per
+    field."""
+    import copy
+
+    import numpy as np
+    import torch
+    from pbml_mantle_convection_tpu_torch.cli.benchmark import (
+        initial_temperature)
+    from pbml_mantle_convection_tpu_torch.constants import SimParams
+    from pbml_mantle_convection_tpu_torch.sim.engine import SimEngine
+    from pbml_mantle_convection_tpu_torch.sim.stepper import TimeStepper
+    e32, e64 = (SimEngine(TimeStepper(grid, SimParams(3.0, 1e8, 10.0), m,
+                                      cn_max=0.99, dtype=dt, device=device,
+                                      net="unet"))
+                for m, dt in ((net, torch.float32),
+                              (copy.deepcopy(net).double(), torch.float64)))
+    T0 = initial_temperature(grid)
+    nudge = UNET_NUDGE * np.random.default_rng(7).uniform(-1, 1, T0.shape)
+    s64, s32 = e64.init_state(T0), e32.init_state(T0)
+    sn = e64.init_state(T0 + nudge)
+    gaps = {"free": [], "nudged": []}
+    forced = dict.fromkeys(("T", "u", "v"), 0.0)
+    for _ in range(steps):
+        f32 = e32.step(type(s64)(*[
+            t.float() if t.is_floating_point() else t for t in s64]))
+        s64, s32, sn = e64.step(s64), e32.step(s32), e64.step(sn)
+        for name in forced:
+            forced[name] = max(forced[name], rel_err(
+                getattr(f32, name).double(), getattr(s64, name))[1])
+        gaps["free"].append({name: rel_err(getattr(s32, name).double(),
+                                           getattr(s64, name))[1]
+                             for name in forced})
+        gaps["nudged"].append(rel_err(sn.T, s64.T)[1])
+    return gaps, forced
+
+
+def check_unet_rollout(net, grid, steps, device="cuda"):
+    """``steps`` coupled U-Net steps in float32 against float64
+    (:func:`unet_rollouts`): each float32 step from the float64 state
+    within TOL_ROLLOUT, the free-running float32 trajectory within it for
+    UNET_TOGETHER steps, and past them the witness that the gap is the
+    dynamics': the gap of a float64 trajectory UNET_NUDGE off at the
+    start grows from its first step to its last by at least
+    1/UNET_WITNESS_FACTOR of the float32 gap's growth."""
+    gaps, forced = unet_rollouts(net, grid, steps, device)
+    free, nudged = gaps["free"], gaps["nudged"]
+    H, W = grid.H, grid.W
+    print(f"unet {steps} steps {H}x{W}, each float32 step from the float64 "
+          f"state vs the float64 step, worst rel: "
+          f"{ {k: f'{v:.3e}' for k, v in forced.items()} } (tol "
+          f"{TOL_ROLLOUT})")
+    for k in range(steps):
+        print(f"unet step {k + 1:2d}: free-running float32 vs float64 rel "
+              f"T {free[k]['T']:.3e} u {free[k]['u']:.3e} v "
+              f"{free[k]['v']:.3e}; float64 from a start {UNET_NUDGE:g} off "
+              f"vs float64 rel T {nudged[k]:.3e}")
+    for name, rel in forced.items():
+        if not rel <= TOL_ROLLOUT[name]:
+            raise AssertionError(f"unet step float32 vs float64: {name} "
+                                 f"{rel:.3e}")
+    for k in range(UNET_TOGETHER):
+        for name, rel in free[k].items():
+            if not rel <= TOL_ROLLOUT[name]:
+                raise AssertionError(f"unet free-running float32 vs "
+                                     f"float64, step {k + 1}: {name} "
+                                     f"{rel:.3e}")
+    g_free = free[-1]["T"] / free[0]["T"]
+    g_nudged = nudged[-1] / nudged[0]
+    print(f"unet: float32 stays within {TOL_ROLLOUT} of float64 for "
+          f"{UNET_TOGETHER} steps; from step 1 to {steps} its T gap grows "
+          f"{g_free:.3e}x to {free[-1]['T']:.3e}, the gap of a float64 start "
+          f"{UNET_NUDGE:g} off {g_nudged:.3e}x to {nudged[-1]:.3e}")
+    if not g_nudged * UNET_WITNESS_FACTOR >= g_free:
+        raise AssertionError(f"unet: float32's gap grows {g_free:.3e}x over "
+                             f"{steps} steps, a float64 start "
+                             f"{UNET_NUDGE:g} off only {g_nudged:.3e}x")
+
+
+def check_unet_gradients(H, W, device="cuda"):
+    """One U-Net train step's parameter gradients against float64 under
+    PyTorch's default flags, each ≤ TOL_TRAIN_GRAD: at B = 2 with the
+    TF32-backward control above the bound, and at the production batch
+    B = 8 for weight seeds 0, 1, 2 (ROADMAP §3 fault 8)."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.sim.grid import Grid
+    grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    for B, legs in ((2, ((0, "step"), (0, "tf32"))),
+                    (8, ((0, "step"), (1, "step"), (2, "step")))):
+        g = torch.Generator().manual_seed(13)
+        x = torch.rand(B, H, W, 10, generator=g).to(device)
+        y = torch.randn(B, 3, H, W, generator=g).to(device)
+        extra = {"paras": torch.tensor([[3.0, 1e8, 10.0]] * B,
+                                       device=device),
+                 "yc": torch.as_tensor(grid.yc, dtype=torch.float32,
+                                       device=device).expand(B, H, W)}
+        out = {}
+        try:
+            for seed, leg in legs:
+                cudnn.allow_tf32, matmul.allow_tf32 = True, False  # PyTorch's
+                out[seed, leg] = rel, want, got = train_gradients(
+                    unet_model(H, W, device, seed), x, y, "unet", leg, extra)
+                print(f"unet train step {H}x{W} B={B} seed {seed}"
+                      + (" TF32-backward control" if leg == "tf32" else "")
+                      + f": parameter gradients vs float64 rel={rel:.3e} "
+                      f"(tol {TOL_TRAIN_GRAD}); {worst_parameter(got, want)}")
+        finally:
+            cudnn.allow_tf32, matmul.allow_tf32 = saved
+        for (seed, leg), (rel, _, _) in out.items():
+            if not (TOL_TRAIN_GRAD < rel if leg == "tf32"
+                    else rel <= TOL_TRAIN_GRAD):
+                raise AssertionError(f"unet train gradients B={B} seed "
+                                     f"{seed} {leg}: {rel:.3e}")
+        del out
+        torch.cuda.empty_cache()
+
+
+def run_unet(counters, H=128, W=506, steps=20, device="cuda"):
+    """Phase 9: the U-Net at ``unet_roll1``'s width, H × W, seeded
+    weights: ``cli/benchmark.py --what inference`` (ms per forward),
+    ``--what rollout`` (steps/s), ``--what train`` at B = 8 (ms,
+    samples/s, peak memory), ``steps`` coupled steps in float32 against
+    float64 (:func:`check_unet_rollout`), and train-step gradients
+    against float64 at B = 2 and 8 (:func:`check_unet_gradients`). The
+    U-Net runs cuDNN's float32 convs and no kernel of this package, on
+    JAX too: every wrapper's count stays 0."""
+    from pbml_mantle_convection_tpu_torch.sim.grid import Grid
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    argv = unet_argv(H, W)
+    echo_benchmark(["--what", "inference", *argv, "--iters", "50"], device)
+    echo_benchmark(["--what", "rollout", *argv, "--steps", "200"], device)
+    rec = echo_train_benchmark([*argv, "--iters", "10"], device)
+    peak = rec["peak_memory_bytes"]
+    print(f"unet train step {H}x{W} B=8: {rec['value']} ms, "
+          f"{rec['samples_per_s']} samples/s, peak "
+          + (f"{peak / 2**30:.2f} GiB" if peak else "not measured"))
+    grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
+    check_unet_rollout(unet_model(H, W, device), grid, steps, device)
+    check_unet_gradients(H, W, device)
+    got = {k: fn.launches for k, fn in counters.items()}
+    if any(got.values()):
+        raise AssertionError(f"the U-Net launched kernels: {got}")
+    print(f"unet: kernel launches {got} (cuDNN's convs, as JAX runs XLA's), "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+# ROADMAP §3 fault 7, repaired: the flagship's train-step gradients against
+# float64, at B = 2 and at the production batch B = 8, weight seeds 0-2
+TOL_FAULT7 = 1e-5
+
+
+def fault7_readings(device="cuda", H=128, W=506):
+    """Phase 8a (fault 7): one train step of the flagship (levels 5, c_h
+    16, repeats 6) at H × W for B = 2 and 8 and weight seeds 0, 1, 2, its
+    parameter gradients against the same step in float64: each reading
+    ≤ TOL_FAULT7 (merge-1's band convs take their weight gradients off
+    cuDNN, ``models/layers.py::conv2d_routed``), with the parameter where the
+    error sits."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet
+    for B in (2, 8):
+        g = torch.Generator().manual_seed(13)
+        x = torch.rand(B, H, W, 7, generator=g).to(device)
+        y = torch.randn(B, 2, H, W, generator=g).to(device)
+        for seed in (0, 1, 2):
+            net = NewFluidNet(levels=5, c_i=7, c_h=16, c_o=1, act_fn="gelu",
+                              r_p="learned", loss_type="curl", repeats=6,
+                              f=5, p_pred=False, seed=seed, device=device)
+            rel, want, got = train_gradients(net, x, y, "newfluidnet")
+            print(f"fault 7: flagship {H}x{W} B={B} seed {seed}: gradients "
+                  f"vs float64 rel={rel:.3e} (tol {TOL_FAULT7}); "
+                  f"{worst_parameter(got, want)}")
+            if not rel <= TOL_FAULT7:
+                raise AssertionError(f"fault 7: B={B} seed {seed}: "
+                                     f"{rel:.3e}")
+        torch.cuda.empty_cache()
 
 
 def run_train(counters, device="cuda"):
@@ -1833,8 +2195,19 @@ def main() -> int:
         launch[k] += n
     print(f"batched rollout: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    zero = run_zero_path(counters)
+    for k, n in zero.items():       # the layer kernels' by instance
+        if k in ("layer_stack", "trunk"):
+            rec[k]["zero_instance"]["launches"] = n
+        else:
+            launch[k] += n
+    print(f"-pad zeros path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     run_train(counters)
     print(f"train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_unet(counters)
+    print(f"unet: {time.perf_counter() - t0:.1f} s")
 
     floor = launch_floor(1, ENERGY_BLOCK)
     print(f"launch floor: an empty kernel of one block of {ENERGY_BLOCK} "

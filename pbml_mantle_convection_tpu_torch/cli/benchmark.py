@@ -4,18 +4,21 @@ Counterpart of the JAX package's ``cli/benchmark.py``, with its arguments
 and its metric names; prints one JSON line. ``--what inference`` times
 ``--iters`` forward passes at batch 1 after one warm-up pass (the
 reference's timing loop, load_fluidnet.ipynb cell 7): NewFluidNet through
-the fused executor (``--raw-module``: the module), the Transolvers through
-their forward. ``--what rollout`` times ``--steps`` coupled ML_STOKES
-steps of a NewFluidNet after a short warm-up, ``--batch`` simulations
-per step (the fused executor runs them one after another, the energy
-step runs once for the batch). ``--what train`` times ``--iters`` train
+the fused executor with learned or zero padding (``-pad``; ``--raw-module``:
+the module), the U-Net, the ConvAE and the Transolvers through their
+forward. ``--what rollout`` times ``--steps`` coupled ML_STOKES steps of a
+NewFluidNet after a short warm-up, ``--batch`` simulations per step (the
+fused executor runs them one after another, the energy step runs once for
+the batch), or of the U-Net (``-net unet|iunet``: the network advances T
+itself, under the metric ``rollout_steps_per_s_unet_{H}x{W}``). ``--what train`` times ``--iters`` train
 steps (train/train_step.py: curl loss with loss scaling and the
 derivative term, Adam 1e-3) at ``--batch`` (default 8) after one warm-up
 step, and prints the peak device memory beside them; ``--profile`` adds
 where a step's time goes (:func:`train_profile`). The inputs are the
 JAX CLI's: zeros for inference, the field of ``bench.py`` for the
 rollout, phase-shifted per simulation when B > 1, seeded normal x and y
-for training; the weights come from seed 0::
+for training (the U-Net's y with T, and its parameters and depth for
+the roll-forward); the weights come from seed 0::
 
     python -m pbml_mantle_convection_tpu_torch.cli.benchmark \\
         --what inference -net transolver_structured
@@ -94,12 +97,18 @@ def build_parser():
     return p
 
 
+# networks with a coupled rollout: the fused executor's family and the
+# U-Net, which advances T itself
+ROLLOUT_NETS = ("newfluidnet", "unet", "iunet")
+
+
 def _unported(args) -> str | None:
     if args.sharded:
         return "--sharded (ROADMAP queue 1 item 7)"
-    if args.what == "rollout" and args.network != "newfluidnet":
-        return (f"rollout of {args.network!r} (the port's stepper runs the "
-                f"FluidNet family; ROADMAP queue 1 item 6)")
+    if args.what == "rollout" and args.network not in ROLLOUT_NETS + (
+            "convae",):
+        return (f"rollout of {args.network!r} (the port's stepper runs "
+                f"NewFluidNet and the U-Net; ROADMAP queue 1 item 6)")
     return None
 
 
@@ -127,18 +136,28 @@ def sync(device: torch.device) -> None:
 
 def train_batch(network: str, B: int, H: int, W: int, c_i: int, dtype,
                 device) -> dict:
-    """The JAX CLI's train batch (JAX ``cli/benchmark.py:140-147``): x
+    """The JAX CLI's train batch (JAX ``cli/benchmark.py:137-150``): x
     then y drawn from ``np.random.default_rng(0)``, normal, (B, H, W, c_i)
-    and (B, 2, H, W). The Transolvers read points, so their x is the same
-    draws as (B, H·W, c_i) (the JAX CLI passes the grid shape there, which
-    its Transolver rejects)."""
+    and (B, 2, H, W); the U-Net's y is (B, 3, H, W) (u, v, T), and its
+    batch also holds the roll-forward's parameters (3.0, 1e8, 10.0) per
+    sample and the grid's yc. The Transolvers read points, so their x is
+    the same draws as (B, H·W, c_i) (the JAX CLI passes the grid shape
+    there, which its Transolver rejects)."""
     rs = np.random.default_rng(0)
+    unet = network in ("unet", "iunet")
     x = rs.normal(size=(B, H, W, c_i))
-    y = rs.normal(size=(B, 2, H, W))
+    y = rs.normal(size=(B, 3 if unet else 2, H, W))
     if "transolver" in network:
         x = x.reshape(B, H * W, c_i)
-    return {"x": torch.as_tensor(x, dtype=dtype, device=device),
-            "y": torch.as_tensor(y, dtype=dtype, device=device)}
+    batch = {"x": torch.as_tensor(x, dtype=dtype, device=device),
+             "y": torch.as_tensor(y, dtype=dtype, device=device)}
+    if unet:
+        grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
+        batch["paras"] = torch.tensor([[3.0, 1e8, 10.0]] * B, dtype=dtype,
+                                      device=device)
+        batch["yc"] = torch.as_tensor(grid.yc, dtype=dtype,
+                                      device=device).expand(B, H, W)
+    return batch
 
 
 def train_profile(model, opt, cfg, step, batch, wall_ms, steps,
@@ -238,6 +257,10 @@ def main(argv=None):
     reason = _unported(args)
     if reason is not None:
         raise NotImplementedError(f"not ported yet: {reason}")
+    if args.what == "rollout" and args.network == "convae":
+        raise ValueError("the ConvAE has no coupled rollout: it predicts "
+                         "no temperature, and the stepper has no branch "
+                         "for it (nor has the JAX stepper)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("benchmark: no CUDA device (pass --device cpu to "
@@ -283,12 +306,13 @@ def main(argv=None):
             "device": name, **flags}))
         return ms
 
-    # rollout: the coupled ML_STOKES engine, B simulations
+    # rollout: the coupled engine, B simulations
     apply_fn = FastNewFluidNet(model, H, W) if (
-        dtype == torch.float32 and unsupported_reason(model) is None) \
-        else model
+        args.network == "newfluidnet" and dtype == torch.float32
+        and unsupported_reason(model) is None) else model
     engine = SimEngine(TimeStepper(grid, params, apply_fn, cn_max=0.99,
-                                   dtype=dtype, device=device))
+                                   dtype=dtype, device=device,
+                                   net=args.network))
     state = engine.init_state(initial_temperature(grid, args.batch))
     state, _ = engine.multi_step(state, min(args.steps, 20))   # warm-up
     sync(device)
@@ -299,7 +323,10 @@ def main(argv=None):
     if not bool(torch.isfinite(state.T).all()):
         raise RuntimeError("rollout: T is not finite")
     B = args.batch
-    out = {"metric": f"rollout_steps_per_s_{H}x{W}"
+    # networks other than the flagship's under their own name (JAX
+    # cli/benchmark.py:257-263)
+    tag = "" if args.network == "newfluidnet" else f"_{args.network}"
+    out = {"metric": f"rollout_steps_per_s{tag}_{H}x{W}"
                      + (f"_B{B}" if B > 1 else ""),
            "value": round(sps, 2), "unit": "steps/s"}
     if B > 1:

@@ -1,10 +1,13 @@
-// The fused learned-boundary layer: one launch computes the 5x5 conv of a
-// whole field (interior and boundary ring) on the tensor cores, adds the
-// bias, and either applies the activation (layers without GroupNorm) or
-// leaves the raw field and its GroupNorm statistics for the next launch,
-// which normalises while it stages its input. Shared by layer_stack.cu
-// (the stacks, up to kMaxLevels pyramid levels in one grid) and trunk.cu
-// (merge-1, whose input is assembled in the staging step).
+// The fused layer: one launch computes the 5x5 conv of a whole field on
+// the tensor cores, adds the bias, and either applies the activation
+// (layers without GroupNorm) or leaves the raw field and its GroupNorm
+// statistics for the next launch, which normalises while it stages its
+// input. Shared by layer_stack.cu (the stacks, up to kMaxLevels pyramid
+// levels in one grid) and trunk.cu (merge-1, whose input is assembled in
+// the staging step). Two instances (template parameter ZERO): the
+// learned-boundary conv (interior and boundary ring, 9 weight classes)
+// and the zero-padded SAME conv (one weight class; the staged window
+// reads 0 outside the field).
 //
 // Implicit GEMM: M = output pixels, N = c_o (8 or 16 columns), K = 25 taps
 // x 8-channel chunks. mma.sync.aligned.m16n8k8 TF32 with the 3xTF32 split
@@ -34,8 +37,9 @@ constexpr int kHaloPix = 432;         // staged pixels per chunk (12 x 36)
 constexpr int kRec = 16;              // floats per staged pixel per chunk
 constexpr int kMaxCo = 16;
 constexpr int kUpBuf = 640;           // trunk: row-upsampled values per channel
-// work items: interior 8x32 tiles, 2x64 row bands, 64x2 column bands,
-// 2x2 corners
+// work items of the learned instance: interior 8x32 tiles, 2x64 row
+// bands, 64x2 column bands, 2x2 corners; of the zero instance: 8x32
+// tiles over the whole field
 constexpr int IT_H = 8, IT_W = 32, BAND = 64;
 
 struct Item {
@@ -53,16 +57,32 @@ __host__ __device__ inline int items_interior_y(int H) {
 __host__ __device__ inline int items_band(int n) {
   return (n - 4 + BAND - 1) / BAND;
 }
-__host__ __device__ inline int n_items(int H, int W) {
+__host__ __device__ inline int n_items(int H, int W, bool zero) {
+  if (zero) return ((H + IT_H - 1) / IT_H) * ((W + IT_W - 1) / IT_W);
   return items_interior_x(W) * items_interior_y(H) + 2 * items_band(W) +
          2 * items_band(H) + 4;
 }
 
-// Item k of an H x W field: interior tiles, then the bands, then corners.
-// The row flip of the reference: output rows 0-1 read rows H-6..H-1
-// (class row 0, conv_bottom*), rows H-2..H-1 read rows 0..5 (class row 2).
+// Item k of an H x W field. Learned instance: interior tiles, then the
+// bands, then corners, with the row flip of the reference: output rows
+// 0-1 read rows H-6..H-1 (class row 0, conv_bottom*), rows H-2..H-1 read
+// rows 0..5 (class row 2). Zero instance: tile k of the row-major 8x32
+// tiling from (0, 0), its window from (-2, -2), class 0.
+template <bool ZERO>
 __device__ inline Item decode_item(int k, int H, int W) {
   Item it;
+  if constexpr (ZERO) {
+    const int gx = (W + IT_W - 1) / IT_W;
+    it.r0 = (k / gx) * IT_H;
+    it.c0 = (k % gx) * IT_W;
+    it.th = IT_H;
+    it.tw = IT_W;
+    it.rlim = H;
+    it.clim = W;
+    it.cls = 0;
+    it.dr = it.dc = -2;
+    return it;
+  }
   const int gx = items_interior_x(W), gy = items_interior_y(H);
   const int nb = items_band(W), nc = items_band(H);
   int rc, cc;
@@ -164,9 +184,13 @@ struct TrunkSrc {
 
 // Stage chunk q of a plain planar input, normalising on load when the
 // input is a raw GroupNorm field. Each thread loads all its pixels' values
-// before it converts any, so its loads are in flight together.
+// before it converts any, so its loads are in flight together. A pixel
+// outside the field stages as 0 (the zero instance's window starts at
+// -2; the learned instance's never leaves the field on that side), and
+// stays 0: the padding pads the activated field.
 constexpr int kPixPerThread = (kHaloPix + kThreads - 1) / kThreads;
 
+template <bool ZERO>
 __device__ inline void stage_planar(float* s, const float* base, int nvalid,
                                     const float* tr, int act, int H, int W,
                                     int hr0, int hc0, int hh, int hw) {
@@ -178,7 +202,8 @@ __device__ inline void stage_planar(float* s, const float* base, int nvalid,
     const int p = threadIdx.x + u * kThreads;
     const int i = p / hw, j = p - (p / hw) * hw;
     const int gr = hr0 + i, gc = hc0 + j;
-    inf[u] = p < hh * hw && gr < H && gc < W;
+    inf[u] = p < hh * hw && gr < H && gc < W &&
+             (!ZERO || (gr >= 0 && gc >= 0));
 #pragma unroll
     for (int k = 0; k < 8; ++k)
       v[u][k] = inf[u] && k < nvalid
@@ -201,17 +226,22 @@ __device__ inline void stage_planar(float* s, const float* base, int nvalid,
   }
 }
 
+template <bool ZERO>
 __device__ inline void stage_plain(float* s, const LayerArgs& a,
                                    const LayerLevel& L, const float* s_tr,
                                    int q, int hr0, int hc0, int hh, int hw) {
-  stage_planar(s, L.x + (size_t)q * 8 * L.H * L.W, min(8, a.c_in - q * 8),
-               L.in_stats != nullptr ? s_tr + 24 * q : nullptr, a.act_out,
-               L.H, L.W, hr0, hc0, hh, hw);
+  stage_planar<ZERO>(s, L.x + (size_t)q * 8 * L.H * L.W,
+                     min(8, a.c_in - q * 8),
+                     L.in_stats != nullptr ? s_tr + 24 * q : nullptr,
+                     a.act_out, L.H, L.W, hr0, hc0, hh, hw);
 }
 
 // Stage chunk q of the trunk's 87-channel input: branch 0 and the network
 // input are read directly; a coarse branch is upsampled here, rows first
 // (into `up`), then columns, from the per-row / per-column tap tables.
+// Window rows [i_lo, rows) and columns [j_lo, cols) lie in the field;
+// the others stage as 0 (i_lo, j_lo > 0 only in the zero instance).
+template <bool ZERO>
 __device__ inline void stage_trunk(float* s, float* up, const TrunkSrc& t,
                                    const LayerLevel& L, int q, int hr0,
                                    int hc0, int hh, int hw) {
@@ -229,9 +259,10 @@ __device__ inline void stage_trunk(float* s, float* up, const TrunkSrc& t,
     const int* xi = t.xi + (size_t)l * W * 4;
     const float* xw = t.xw + (size_t)l * W * 4;
     const int rows = min(hh, H - hr0), cols = min(hw, W - hc0);
+    const int i_lo = ZERO ? max(0, -hr0) : 0, j_lo = ZERO ? max(0, -hc0) : 0;
     // coarse columns the tile's output columns read (the tables hold
     // ascending indices; zero-weight padding repeats the first)
-    const int cmin = __ldg(&xi[hc0 * 4]);
+    const int cmin = __ldg(&xi[(hc0 + j_lo) * 4]);
     int cmax = cmin;
 #pragma unroll
     for (int b = 0; b < 4; ++b)
@@ -243,12 +274,14 @@ __device__ inline void stage_trunk(float* s, float* up, const TrunkSrc& t,
     __shared__ float s_yw[(BAND + KS - 1) * 4], s_xw[(BAND + KS - 1) * 4];
     for (int e = threadIdx.x; e < 4 * (hh + hw); e += kThreads) {
       if (e < 4 * hh) {
-        const int gr = min(hr0 + e / 4, H - 1);
+        const int r = hr0 + e / 4;
+        const int gr = min(ZERO ? max(r, 0) : r, H - 1);
         s_yi[e] = __ldg(&yi[gr * 4 + (e & 3)]);
         s_yw[e] = __ldg(&yw[gr * 4 + (e & 3)]);
       } else {
         const int e2 = e - 4 * hh;
-        const int gc = min(hc0 + e2 / 4, W - 1);
+        const int c = hc0 + e2 / 4;
+        const int gc = min(ZERO ? max(c, 0) : c, W - 1);
         s_xi[e2] = __ldg(&xi[gc * 4 + (e2 & 3)]) - cmin;
         s_xw[e2] = __ldg(&xw[gc * 4 + (e2 & 3)]);
       }
@@ -261,7 +294,7 @@ __device__ inline void stage_trunk(float* s, float* up, const TrunkSrc& t,
         const int k = e / (ni * ncol);
         const int rem = e - k * ni * ncol;
         const int i = i0 + rem / ncol, jc = rem - (rem / ncol) * ncol;
-        if (i >= rows) continue;
+        if (i >= rows || (ZERO && i < i_lo)) continue;
         const float* sc = src + (size_t)k * ch * cw + cmin + jc;
         float sum = 0.f;
 #pragma unroll
@@ -275,7 +308,7 @@ __device__ inline void stage_trunk(float* s, float* up, const TrunkSrc& t,
         float v[8];
 #pragma unroll
         for (int k = 0; k < 8; ++k) v[k] = 0.f;
-        if (i < rows && j < cols) {
+        if (i < rows && j < cols && (!ZERO || (i >= i_lo && j >= j_lo))) {
 #pragma unroll
           for (int b = 0; b < 4; ++b) {
             const float w = s_xw[j * 4 + b];
@@ -290,20 +323,21 @@ __device__ inline void stage_trunk(float* s, float* up, const TrunkSrc& t,
     return;
   }
   if (ci0 < t.c_h)
-    stage_planar(s, t.b0 + (size_t)ci0 * HW, min(8, t.c_h - ci0), nullptr, 0,
-                 H, W, hr0, hc0, hh, hw);
+    stage_planar<ZERO>(s, t.b0 + (size_t)ci0 * HW, min(8, t.c_h - ci0),
+                       nullptr, 0, H, W, hr0, hc0, hh, hw);
   else
-    stage_planar(s, t.x + (size_t)(ci0 - c_branch) * HW,
-                 min(8, t.c_x - (ci0 - c_branch)), nullptr, 0, H, W, hr0,
-                 hc0, hh, hw);
+    stage_planar<ZERO>(s, t.x + (size_t)(ci0 - c_branch) * HW,
+                       min(8, t.c_x - (ci0 - c_branch)), nullptr, 0, H, W,
+                       hr0, hc0, hh, hw);
 }
 
 // The layer kernel. NJ: output-channel tiles of 8 (c_o 1..8 -> 1, 16 -> 2).
 // TRUNK: assemble the input with stage_trunk instead of stage_plain.
+// ZERO: the zero-padded instance (see decode_item).
 // Blocks per SM: 3 for the stacks (<= 80 registers; the third block
 // overlaps its staging with the others' MMAs), 2 for the trunk, whose
 // upsampling buffer and 127 registers leave room for no more.
-template <int NJ, bool TRUNK>
+template <int NJ, bool TRUNK, bool ZERO>
 __global__ void __launch_bounds__(kThreads, TRUNK ? 2 : 3)
 blc_fused_kernel(const __grid_constant__ LayerArgs a,
                  const __grid_constant__ TrunkSrc tsrc) {
@@ -320,7 +354,7 @@ blc_fused_kernel(const __grid_constant__ LayerArgs a,
     ++lvl;
   const LayerLevel& L = a.lv[lvl];
   const int item = blockIdx.x - L.start;
-  const Item it = decode_item(item, L.H, L.W);
+  const Item it = decode_item<ZERO>(item, L.H, L.W);
   const int H = L.H, W = L.W;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -372,9 +406,9 @@ blc_fused_kernel(const __grid_constant__ LayerArgs a,
       cp_async16(s_w + i, wcls + (size_t)q * wchunk + i);
     cp_async_commit();
     if constexpr (TRUNK)
-      stage_trunk(s_a, s_up, tsrc, L, q, hr0, hc0, hh, hw);
+      stage_trunk<ZERO>(s_a, s_up, tsrc, L, q, hr0, hc0, hh, hw);
     else
-      stage_plain(s_a, a, L, s_tr, q, hr0, hc0, hh, hw);
+      stage_plain<ZERO>(s_a, a, L, s_tr, q, hr0, hc0, hh, hw);
     cp_async_wait_all();
     __syncthreads();
 #pragma unroll 1
@@ -492,7 +526,7 @@ blc_fused_kernel(const __grid_constant__ LayerArgs a,
     __threadfence();
   }
   __syncthreads();
-  const int nitems = n_items(H, W);
+  const int nitems = n_items(H, W, ZERO);
   if (tid == 0) s_last = atomicAdd(L.counter, 1) == nitems - 1;
   __syncthreads();
   if (!s_last) return;
@@ -550,30 +584,40 @@ inline size_t layer_smem_bytes(int nj, bool trunk) {
                           (trunk ? 8 * kUpBuf : 0));
 }
 
-template <int NJ, bool TRUNK>
+template <int NJ, bool TRUNK, bool ZERO>
 cudaError_t launch_layer_nj(const LayerArgs& a, const TrunkSrc& t,
                             int blocks, cudaStream_t stream) {
   static bool attr = false;
   const size_t smem = layer_smem_bytes(NJ, TRUNK);
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
-        blc_fused_kernel<NJ, TRUNK>,
+        blc_fused_kernel<NJ, TRUNK, ZERO>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     attr = true;
   }
-  blc_fused_kernel<NJ, TRUNK><<<blocks, kThreads, smem, stream>>>(a, t);
+  blc_fused_kernel<NJ, TRUNK, ZERO><<<blocks, kThreads, smem, stream>>>(a,
+                                                                       t);
   return cudaGetLastError();
 }
 
-template <bool TRUNK>
-cudaError_t launch_layer(const LayerArgs& a, const TrunkSrc& t,
-                         cudaStream_t stream) {
+template <bool TRUNK, bool ZERO>
+cudaError_t launch_layer_pad(const LayerArgs& a, const TrunkSrc& t,
+                             cudaStream_t stream) {
   int blocks = 0;
   for (int l = 0; l < a.n_levels; ++l)
-    blocks = a.lv[l].start + n_items(a.lv[l].H, a.lv[l].W);
-  if (a.c_o > 8) return launch_layer_nj<2, TRUNK>(a, t, blocks, stream);
-  return launch_layer_nj<1, TRUNK>(a, t, blocks, stream);
+    blocks = a.lv[l].start + n_items(a.lv[l].H, a.lv[l].W, ZERO);
+  if (a.c_o > 8)
+    return launch_layer_nj<2, TRUNK, ZERO>(a, t, blocks, stream);
+  return launch_layer_nj<1, TRUNK, ZERO>(a, t, blocks, stream);
+}
+
+// zero: the zero-padded instance, else the learned-boundary one
+template <bool TRUNK>
+cudaError_t launch_layer(const LayerArgs& a, const TrunkSrc& t, bool zero,
+                         cudaStream_t stream) {
+  return zero ? launch_layer_pad<TRUNK, true>(a, t, stream)
+              : launch_layer_pad<TRUNK, false>(a, t, stream);
 }
 
 // The pass after a stack's last GroupNorm layer: y = act(GN(y)) in place,

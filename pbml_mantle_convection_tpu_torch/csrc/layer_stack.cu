@@ -1,13 +1,17 @@
-// layer_stack: stacks of R learned-boundary FluidLayers on the card, one
-// field or up to five pyramid levels at once.
+// layer_stack: stacks of R FluidLayers on the card, one field or up to
+// five pyramid levels at once.
 //
 // Replaces the TPU kernel pbml_mantle_convection_tpu/ops/branch_kernel.py::
-// _stack_kernel (built by LayerStack). Per layer: 5x5 conv whose weight set
-// and input window depend on where the output pixel lies (the interior
-// `conv`, the 4 edge and 4 corner convs of the learned padding, with the
-// reference's row flip: output rows 0-1 read input rows H-6..H-1 through
-// the conv_bottom* weights, rows H-2..H-1 read rows 0..5 through conv_top*),
-// learnable bias, GroupNorm over the whole field (eps 1e-5), exact-erf GELU.
+// _stack_kernel (built by LayerStack), both of its instances. Per layer:
+// a 5x5 conv, then bias, GroupNorm over the whole field (eps 1e-5),
+// exact-erf GELU. learned=True: the learned-boundary conv, whose weight
+// set and input window depend on where the output pixel lies (the
+// interior `conv`, the 4 edge and 4 corner convs of the learned padding,
+// with the reference's row flip: output rows 0-1 read input rows
+// H-6..H-1 through the conv_bottom* weights, rows H-2..H-1 read rows 0..5
+// through conv_top*) and its learnable bias. learned=False: a SAME conv
+// over the zero-padded field and the conv's own bias (blc_layer.cuh's
+// ZERO instance: 8x32 tiles over the whole field, no ring items).
 //
 // What bounds it: operations. A 16->16 layer at 128x506 is 0.83 GFLOP;
 // the step's stacks are ~3.6 GFLOP, 3x that as 3xTF32 tensor-core work.
@@ -64,8 +68,9 @@ int grid_for(size_t n, int threads) {
 
 }  // namespace
 
-size_t frag_floats(int c_in, int c_o) {
-  return (size_t)9 * NTAP * ((c_in + 7) / 8) * ((c_o + 7) / 8) * 128;
+// one layer's weight fragments: 9 classes (learned) or 1 (zero padding)
+size_t frag_floats(int c_in, int c_o, bool zero) {
+  return (size_t)(zero ? 1 : 9) * NTAP * ((c_in + 7) / 8) * ((c_o + 7) / 8) * 128;
 }
 
 }  // namespace pmc
@@ -77,8 +82,11 @@ const char* pmc_error_string(int err) {
 }
 
 // Work items (blocks) of one field's layer launch: the size of its
-// per-block GroupNorm scratch, in units of (c_o, 2) doubles.
-int pmc_work_items(int H, int W) { return pmc::n_items(H, W); }
+// per-block GroupNorm scratch, in units of (c_o, 2) doubles. zero_pad:
+// the zero-padded instance's, else the learned-boundary one's.
+int pmc_work_items(int H, int W, int zero_pad) {
+  return pmc::n_items(H, W, zero_pad != 0);
+}
 
 // L fields (pyramid levels) through stacks of equal shape. Per level l:
 // input xs[l] (c_in, H_l, W_l), output ys[l] (c_o, H_l, W_l), scratch[l]
@@ -88,7 +96,9 @@ int pmc_work_items(int H, int W) { return pmc::n_items(H, W); }
 // floats, partial L x partial_stride doubles, counters[L] ints that are 0
 // (and are 0 again after the call). With n_pyr > 0 (L == 1), pyr[i]
 // receives the (i+1)-th successive 2x2 pool of the output; with pool_out
-// non-null (L == 1), the 2x2 pool of the input.
+// non-null (L == 1), the 2x2 pool of the input. zero_pad: the layers are
+// zero-padded SAME convs with one weight class, else learned-boundary
+// convs with nine.
 int pmc_layer_stacks(int L, const void* const* xs, void* const* ys,
                      void* const* scratch, const int* hw,
                      const void* const* frags, const void* const* bias,
@@ -96,8 +106,10 @@ int pmc_layer_stacks(int L, const void* const* xs, void* const* ys,
                      float* stats, double* partial, int partial_stride,
                      int* counters, void* const* pyr, int n_pyr,
                      float* pool_out, int c_in, int c_o, int R, int groups,
-                     int use_gn, int use_act, void* stream_ptr) {
+                     int use_gn, int use_act, int zero_pad,
+                     void* stream_ptr) {
   using namespace pmc;
+  const bool zero = zero_pad != 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (L < 1 || L > kMaxLevels || R < 1 || c_in < 1 || c_o < 1 ||
       c_o > kMaxCo || n_pyr < 0 || n_pyr > kMaxPyramid ||
@@ -106,9 +118,11 @@ int pmc_layer_stacks(int L, const void* const* xs, void* const* ys,
   if (use_gn && (groups < 1 || groups > c_o || c_o % groups))
     return cudaErrorInvalidValue;
   for (int l = 0; l < L; ++l) {
-    if (hw[2 * l] < 6 || hw[2 * l + 1] < 6) return cudaErrorInvalidValue;
+    const int min_hw = zero ? 1 : 6;   // the learned ring's 6-row slabs
+    if (hw[2 * l] < min_hw || hw[2 * l + 1] < min_hw)
+      return cudaErrorInvalidValue;
     if (R > 1 && scratch[l] == nullptr) return cudaErrorInvalidValue;
-    if (partial_stride < n_items(hw[2 * l], hw[2 * l + 1]) * c_o * 2)
+    if (partial_stride < n_items(hw[2 * l], hw[2 * l + 1], zero) * c_o * 2)
       return cudaErrorInvalidValue;
   }
   if (pool_out != nullptr) {
@@ -151,11 +165,11 @@ int pmc_layer_stacks(int L, const void* const* xs, void* const* ys,
       v.H = hw[2 * l];
       v.W = hw[2 * l + 1];
       v.start = start;
-      start += n_items(v.H, v.W);
+      start += n_items(v.H, v.W, zero);
     }
-    const cudaError_t err = launch_layer<false>(a, TrunkSrc{}, stream);
+    const cudaError_t err = launch_layer<false>(a, TrunkSrc{}, zero, stream);
     if (err != cudaSuccess) return err;
-    w_off += frag_floats(ci, c_o);
+    w_off += frag_floats(ci, c_o, zero);
   }
   if (use_gn || n_pyr > 0) {
     ApplyArgs a{};

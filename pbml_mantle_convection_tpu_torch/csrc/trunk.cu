@@ -4,8 +4,10 @@
 // _trunk_kernel (built by TrunkStack). Its input is NewFluidNet's merge
 // input — branch 0 (c_h), the coarse branches 1..L-1 bicubic-upsampled to
 // H x W (c_h each) and the c_x-channel network input, 87 channels for the
-// flagship — and it runs the merge-1 learned-boundary conv 87 -> c_h with
-// bias, GroupNorm (c_h/4 groups) and exact GELU.
+// flagship — and it runs the merge-1 conv 87 -> c_h with bias, GroupNorm
+// (c_h/4 groups) and exact GELU: the learned-boundary conv (learned=True)
+// or, with zero_pad, the zero-padded SAME conv (learned=False; the
+// upsampled branches and the skip channels read 0 outside the field).
 //
 // What bounds it: operations — the 87->16 conv is 4.5 GFLOP at 128x506
 // (13.5 as 3xTF32 tensor-core work). Design: the layer kernel of
@@ -29,11 +31,13 @@ extern "C" int pmc_trunk(const float* b0, const void* const* coarse,
                          const int* xi, const float* xw, const float* frag,
                          const float* bias, const float* gn_scale,
                          const float* gn_bias, int c_h, int H, int W,
-                         int groups, void* stream_ptr) {
+                         int groups, int zero_pad, void* stream_ptr) {
   using namespace pmc;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int min_hw = zero_pad ? 1 : 6;
   if (n_coarse < 0 || n_coarse > kMaxLevels || c_h < 8 || c_h > kMaxCo ||
-      c_h % 8 || c_x < 0 || H < 6 || W < 6 || groups < 1 || c_h % groups)
+      c_h % 8 || c_x < 0 || H < min_hw || W < min_hw || groups < 1 ||
+      c_h % groups)
     return cudaErrorInvalidValue;
   TrunkSrc t{};
   t.b0 = b0;
@@ -67,7 +71,7 @@ extern "C" int pmc_trunk(const float* b0, const void* const* coarse,
   v.counter = counter;
   v.H = H;
   v.W = W;
-  cudaError_t err = launch_layer<true>(a, t, stream);
+  cudaError_t err = launch_layer<true>(a, t, zero_pad != 0, stream);
   if (err != cudaSuccess) return err;
 
   ApplyArgs p{};

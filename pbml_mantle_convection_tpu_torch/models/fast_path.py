@@ -15,9 +15,13 @@ TPU block layouts of the JAX executor do not exist here. On CUDA tensors
 every stage is a hand-written kernel; on CPU tensors each stage runs its
 plain PyTorch version.
 
-Supported: the flagship form — learned padding with k = 5, pooling factor
-2, GELU, curl head with c_o = 1 and no pressure output. The constructor
-raises on anything else.
+Supported: the flagship form — k = 5, pooling factor 2, GELU, curl head
+with c_o = 1 and no pressure output — with either padding the JAX
+executor takes: learned padding (every layer a learned-boundary conv, the
+kernels' learned instance) or zero padding (``r_p="zeros"``: every layer
+a zero-padded SAME conv with its own bias, the kernels' zero instance;
+the 3×3 merge convs run as 5×5 kernels with a zero ring, the same
+function). The constructor raises on anything else.
 """
 
 from __future__ import annotations
@@ -32,13 +36,16 @@ from ..ops.branch_kernel import (StackWeights, layer_stack, layer_stacks,
 from ..ops.merge_kernel import trunk, trunk_weights
 from ..physics.viscosity import fk_viscosity_clipped
 from .fluidnet import NewFluidNet
-from .layers import fluid_layer_groups
+from .layers import BoundaryLearnedConvolution2D, fluid_layer_groups
 
 
 def unsupported_reason(m: NewFluidNet) -> Optional[str]:
-    """Why the fused executor cannot run ``m``, or None."""
-    if m.r_p != "learned" or m.f != 5:
-        return f"r_p={m.r_p!r}, f={m.f} (needs learned padding, k=5)"
+    """Why the fused executor cannot run ``m``, or None. It runs learned
+    padding (the layer kernels' learned-boundary instance) and zero
+    padding (their zero-padded instance), each with k = 5."""
+    if m.r_p not in ("learned", "zeros") or m.f != 5:
+        return (f"r_p={m.r_p!r}, f={m.f} (needs learned or zero padding, "
+                f"k=5)")
     if m.factor != 2:
         return f"factor={m.factor} (needs 2)"
     if m.act_fn != "gelu":
@@ -48,6 +55,24 @@ def unsupported_reason(m: NewFluidNet) -> Optional[str]:
     if m.c_h not in (8, 16):
         return f"c_h={m.c_h} (the kernels are built for 8 or 16)"
     return None
+
+
+def conv_weights(conv) -> tuple:
+    """A layer's conv as ``pack_stack`` takes it: (its 9 kernels, its
+    learnable bias) for a learned-boundary conv; ((its kernel as 5×5,),
+    its bias) for a zero-padded SAME conv — a k×k kernel with (k-1)/2
+    zeros on each side is the same function on a field padded by 2."""
+    if isinstance(conv, BoundaryLearnedConvolution2D):
+        return conv.kernels(), conv.learnable_bias
+    k = conv.weight.shape[-1]
+    if (conv.pad_mode != "constant" or k % 2 == 0 or k > 5
+            or conv.pad != ((k - 1) // 2,) * 4 or conv.bias is None):
+        raise ValueError(f"FastNewFluidNet: a {k}×{k} conv with padding "
+                         f"{conv.pad} ({conv.pad_mode}) is no zero-padded "
+                         f"SAME conv with bias")
+    p = (5 - k) // 2
+    return (torch.nn.functional.pad(conv.weight.detach(), (p, p, p, p)),
+            ), conv.bias
 
 
 class FastNewFluidNet:
@@ -69,13 +94,12 @@ class FastNewFluidNet:
         g = fluid_layer_groups(model.c_h)
 
         def fluid(layers) -> StackWeights:
-            return pack_stack([(lay.conv.kernels(), lay.conv.learnable_bias,
-                                lay.gn.weight, lay.gn.bias)
-                               for lay in layers], groups=g)
+            return pack_stack([(*conv_weights(lay.conv), lay.gn.weight,
+                                lay.gn.bias) for lay in layers], groups=g)
 
-        def merge(blc, gn=None, use_act=True) -> StackWeights:
+        def merge(conv, gn=None, use_act=True) -> StackWeights:
             return pack_stack(
-                [(blc.kernels(), blc.learnable_bias,
+                [(*conv_weights(conv),
                   gn.weight if gn is not None else None,
                   gn.bias if gn is not None else None)],
                 groups=max(1, model.c_h // 4) if gn is not None else 1,
@@ -95,6 +119,11 @@ class FastNewFluidNet:
         # set by bind_input_assembly
         self._static_x = self._depth = None
         self._in_static = self._in_params = None
+
+    @property
+    def zero_pad(self) -> bool:
+        """Whether the layers run the kernels' zero-padded instance."""
+        return self.stem.zero_pad
 
     def psi(self, x: torch.Tensor) -> torch.Tensor:
         """(c_i, H, W) planar input → (1, H, W) raw stream function."""

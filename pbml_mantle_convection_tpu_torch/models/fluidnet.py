@@ -61,6 +61,12 @@ class NewFluidNet(nn.Module):
                                explicit_padding=(1, 1))
 
         self.conv_1 = merge(c_cat, c_h)
+        if learned:
+            # at the production grid cuDNN's float32 weight gradients of
+            # merge-1's 87-channel boundary slabs are ~1e-4 off; a direct
+            # sum is ~1e-6 (ROADMAP §3 fault 7, tools/
+            # torch_port_grad_precision.py)
+            self.conv_1.wgrad_off_cudnn = True
         self.gn_0 = GroupNormTorch(max(1, c_h // 4), c_h)
         self.conv_2 = merge(c_h, c_h)
         self.conv_3 = merge(c_h, c_o)

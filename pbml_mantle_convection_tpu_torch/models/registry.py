@@ -2,9 +2,10 @@
 
 Counterpart of the JAX package's ``models/registry.py``: one typed config
 (the same fields and the same ``channels`` rule) and ``build_model``. The
-port builds the families it has: ``newfluidnet``, ``transolver_structured``
-and ``transolver``. Any other network raises ``NotImplementedError``
-naming its ROADMAP item; none silently turns into another model.
+port builds the families it has: ``newfluidnet``, ``unet`` and ``iunet``
+(the same U-Net), ``convae``, ``transolver_structured`` and
+``transolver``. Any other network raises ``NotImplementedError`` naming
+its ROADMAP item; none silently turns into another model.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from .fluidnet import NewFluidNet
 from .transolver import TransolverIrregular, TransolverStructured2D
+from .unet import ConvAE, Unet
 
 # networks of the JAX registry that the port does not build yet
 _UNPORTED = {
@@ -24,9 +26,6 @@ _UNPORTED = {
     "halfnewfluidnet": "ROADMAP queue 1 item 6",
     "multiscalenewfluidnet": "ROADMAP queue 1 item 6",
     "vit": "ROADMAP queue 1 item 6",
-    "unet": "ROADMAP queue 1 item 5",
-    "iunet": "ROADMAP queue 1 item 5",
-    "convae": "ROADMAP queue 1 item 5",
 }
 
 
@@ -124,6 +123,21 @@ def build_model(cfg: ModelConfig, seed: int = 0, device=None):
                            loss_type=cfg.loss_type, a_bound=cfg.a_bound,
                            repeats=cfg.repeats, f=cfg.kernel,
                            p_pred=cfg.p_pred, factor=cfg.factor, **common)
+    if net in ("unet", "iunet"):
+        return Unet(levels=cfg.levels, c_i=c_i, c_h=cfg.c_h, c_o=c_o,
+                    act_fn=cfg.act_fn, r_p=cfg.r_p, loss_type=cfg.loss_type,
+                    use_symm=cfg.use_symm, dilation=cfg.dilation,
+                    a_bound=cfg.a_bound, repeats=cfg.repeats, f=cfg.kernel,
+                    p_pred=cfg.p_pred, spectral_conv=cfg.spectral_conv,
+                    blurr=cfg.blurr, drop_rate=cfg.drop_rate, **common)
+    if net == "convae":
+        return ConvAE(levels=cfg.levels, c_i=c_i, c_h=cfg.c_h, c_o=c_o,
+                      act_fn=cfg.act_fn, r_p=cfg.r_p,
+                      loss_type=cfg.loss_type, use_symm=cfg.use_symm,
+                      dilation=cfg.dilation, a_bound=cfg.a_bound,
+                      repeats=cfg.repeats, f=cfg.kernel, p_pred=cfg.p_pred,
+                      spectral_conv=cfg.spectral_conv, blurr=cfg.blurr,
+                      **common)
     if net == "transolver":
         return TransolverIrregular(
             space_dim=2, fun_dim=5, n_layers=cfg.n_layers,

@@ -41,10 +41,10 @@ SLICE_TYPES = ("f32", "f64", "bf16", "f16")
 # C entry points: name → argument types (every one returns a cudaError_t)
 _SIGNATURES = {
     "pmc_layer_stacks": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                         _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
+                         _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "pmc_trunk": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P, _P, _P,
-                  _I, _I, _I, _I, _P],
+                  _I, _I, _I, _I, _I, _P],
     "pmc_curl_advect_epilogue": [_P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _P, _I,
                                  _I, _I, _F, _F, _F, _F, _P],
@@ -142,16 +142,17 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.pmc_error_string.argtypes = [ctypes.c_int]
     lib.pmc_error_string.restype = ctypes.c_char_p
-    lib.pmc_work_items.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.pmc_work_items.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.pmc_work_items.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def work_items(H: int, W: int) -> int:
+def work_items(H: int, W: int, zero_pad: bool = False) -> int:
     """Blocks of one layer launch over an H × W field (the rows of its
-    per-block GroupNorm scratch)."""
-    return library().pmc_work_items(H, W)
+    per-block GroupNorm scratch), of the zero-padded instance when
+    ``zero_pad``, else of the learned-boundary one."""
+    return library().pmc_work_items(H, W, int(zero_pad))
 
 
 # fields one layer launch takes (csrc/pmc_common.cuh::kMaxLevels)

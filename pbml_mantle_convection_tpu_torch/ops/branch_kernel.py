@@ -1,12 +1,15 @@
-"""``layer_stack``: stacks of learned-boundary FluidLayers as one call.
+"""``layer_stack``: stacks of FluidLayers as one call.
 
 Replaces the TPU kernel ``pbml_mantle_convection_tpu/ops/branch_kernel.py::
-_stack_kernel`` (``LayerStack``). On a CUDA tensor :func:`layer_stack` and
-:func:`layer_stacks` launch the hand-written kernels of
-``csrc/layer_stack.cu``; on a CPU tensor they run :func:`layer_stack_plain`,
-the same function in plain PyTorch (9 VALID ``F.conv2d`` + ``torch.cat``
-in the stitch order of the reference, then ``F.group_norm`` and exact
-``F.gelu``).
+_stack_kernel`` (``LayerStack``), both of its instances: learned-boundary
+layers (``learned=True``) and zero-padded ones (``learned=False``: a 5×5
+SAME conv over the zero-padded field with the conv's own bias). On a CUDA
+tensor :func:`layer_stack` and :func:`layer_stacks` launch the
+hand-written kernels of ``csrc/layer_stack.cu``; on a CPU tensor they run
+:func:`layer_stack_plain`, the same function in plain PyTorch (learned: 9
+VALID ``F.conv2d`` + ``torch.cat`` in the stitch order of the reference;
+zero: ``F.conv2d(F.pad(x, (2, 2, 2, 2)), w, b)``; then ``F.group_norm``
+and exact ``F.gelu``).
 
 What was built for the card (the note at the top of
 ``csrc/layer_stack.cu`` has the detail): one launch per layer, in which the
@@ -32,7 +35,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from ..models.layers import blc_conv2d
+from ..models.layers import blc_conv2d, float32_convs
 from . import _cuda
 from .resize import avg_pool_nchw
 
@@ -47,20 +50,23 @@ def _tf32(w: torch.Tensor) -> torch.Tensor:
     return ((b + 0x1000) & -0x2000).view(torch.float32)
 
 
-def weight_fragments(w9: Sequence[torch.Tensor]) -> torch.Tensor:
-    """One layer's 9 OIHW kernels (c_o, c_in, 5, 5) as the kernel's mma B
-    fragments: (class, 8-channel input chunk q, tap, 8-channel output tile
-    j, lane, 4), one class's chunk contiguous as the kernel copies it to
-    shared memory. Lane 4·g + t holds, for co = 8j + g, the weights of
-    ci = 8q + t and 8q + t + 4, each split into TF32 hi and lo parts:
-    [hi(t), hi(t+4), lo(t), lo(t+4)]. Channels past c_in or c_o are 0."""
-    c_o, c_in = w9[0].shape[:2]
+def weight_fragments(ws: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One layer's OIHW kernels (c_o, c_in, 5, 5), one per weight class (9
+    for the learned-boundary conv, 1 for the zero-padded one), as the
+    kernel's mma B fragments: (class, 8-channel input chunk q, tap,
+    8-channel output tile j, lane, 4), one class's chunk contiguous as the
+    kernel copies it to shared memory. Lane 4·g + t holds, for co = 8j +
+    g, the weights of ci = 8q + t and 8q + t + 4, each split into TF32 hi
+    and lo parts: [hi(t), hi(t+4), lo(t), lo(t+4)]. Channels past c_in or
+    c_o are 0."""
+    n = len(ws)
+    c_o, c_in = ws[0].shape[:2]
     nq, nj = math.ceil(c_in / 8), math.ceil(c_o / 8)
-    w = torch.zeros(9, 25, nq * 8, nj * 8, device=w9[0].device)
-    w[:, :, :c_in, :c_o] = (torch.stack([k.detach().float() for k in w9])
-                            .reshape(9, c_o, c_in, 25).permute(0, 3, 2, 1))
+    w = torch.zeros(n, 25, nq * 8, nj * 8, device=ws[0].device)
+    w[:, :, :c_in, :c_o] = (torch.stack([k.detach().float() for k in ws])
+                            .reshape(n, c_o, c_in, 25).permute(0, 3, 2, 1))
     # (class, tap, q, k, j, g) → (class, q, tap, j, g, k)
-    b = w.reshape(9, 25, nq, 8, nj, 8).permute(0, 2, 1, 4, 5, 3)
+    b = w.reshape(n, 25, nq, 8, nj, 8).permute(0, 2, 1, 4, 5, 3)
     b0, b1 = b[..., :4], b[..., 4:]
     h0, h1 = _tf32(b0), _tf32(b1)
     frag = torch.stack([h0, h1, _tf32(b0 - h0), _tf32(b1 - h1)], dim=-1)
@@ -69,12 +75,13 @@ def weight_fragments(w9: Sequence[torch.Tensor]) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class StackWeights:
-    """Weights of R learned-boundary layers with c_o outputs each.
+    """Weights of R layers with c_o outputs each: learned-boundary layers,
+    or zero-padded ones when ``zero_pad``.
 
-    ``kernels[i]`` holds layer i's 9 OIHW kernels in ``BLC_CLASSES``
-    order (the plain version reads them); ``frag`` is the same weights as
-    the layers' :func:`weight_fragments` back to back (the kernel reads
-    them).
+    ``kernels[i]`` holds layer i's OIHW 5×5 kernels, 9 in ``BLC_CLASSES``
+    order or the one zero-padded conv's (the plain version reads them);
+    ``frag`` is the same weights as the layers' :func:`weight_fragments`
+    back to back (the kernel reads them).
     """
 
     kernels: tuple
@@ -87,6 +94,7 @@ class StackWeights:
     groups: int
     use_gn: bool
     use_act: bool
+    zero_pad: bool = False
 
     @property
     def R(self) -> int:
@@ -95,17 +103,26 @@ class StackWeights:
 
 def pack_stack(layers: Sequence, groups: int, use_gn: bool = True,
                use_act: bool = True) -> StackWeights:
-    """``layers``: per layer (9 OIHW kernels, bias (c_o,), gn scale,
-    gn bias); the GN tensors may be None when ``use_gn`` is off. Every
-    layer after the first maps c_o → c_o."""
+    """``layers``: per layer (its OIHW 5×5 kernels, bias (c_o,), gn scale,
+    gn bias): 9 kernels in ``BLC_CLASSES`` order for a learned-boundary
+    layer and its learnable bias, or 1 for a zero-padded SAME conv and
+    the conv's bias; the GN tensors may be None when ``use_gn`` is off.
+    Every layer has the same kind, and every layer after the first maps
+    c_o → c_o."""
     with torch.no_grad():
-        kernels = tuple(tuple(k.detach() for k in w9)
-                        for w9, _, _, _ in layers)
+        kernels = tuple(tuple(k.detach() for k in ws)
+                        for ws, _, _, _ in layers)
+        n_cls = len(kernels[0])
+        if n_cls not in (1, 9) or any(len(ws) != n_cls for ws in kernels):
+            raise ValueError("each layer needs 9 learned-boundary kernels "
+                             "or 1 zero-padded one, all layers alike")
+        if any(k.shape[-2:] != (5, 5) for ws in kernels for k in ws):
+            raise ValueError("the layer kernels take 5×5 convs")
         c_o, c_in = kernels[0][0].shape[:2]
-        for w9 in kernels[1:]:
-            if w9[0].shape[1] != c_o:
+        for ws in kernels[1:]:
+            if ws[0].shape[1] != c_o:
                 raise ValueError("layers after the first must map c_o → c_o")
-        frag = torch.cat([weight_fragments(w9) for w9 in kernels])
+        frag = torch.cat([weight_fragments(ws) for ws in kernels])
         ones = torch.ones_like(layers[0][1])
         bias = torch.stack([b.detach() for _, b, _, _ in layers])
         gs = torch.stack([(s if s is not None else ones).detach()
@@ -114,7 +131,14 @@ def pack_stack(layers: Sequence, groups: int, use_gn: bool = True,
                           for _, _, _, b in layers])
     return StackWeights(kernels, frag, bias.contiguous(), gs.contiguous(),
                         gb.contiguous(), int(c_in), int(c_o), groups,
-                        use_gn, use_act)
+                        use_gn, use_act, n_cls == 1)
+
+
+def zero_pad_conv2d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+    """The zero instance's conv: a 5×5 SAME conv of the zero-padded
+    (B, C, H, W) field, plus bias."""
+    with float32_convs(x):
+        return F.conv2d(F.pad(x, (2, 2, 2, 2)), w, bias)
 
 
 def layer_stack_plain(x: torch.Tensor, sw: StackWeights, pool: bool = False,
@@ -123,7 +147,10 @@ def layer_stack_plain(x: torch.Tensor, sw: StackWeights, pool: bool = False,
     pooled = avg_pool_nchw(x, 2) if pool else None
     y = x[None]
     for i in range(sw.R):
-        y = blc_conv2d(y, sw.kernels[i], sw.bias[i])
+        if sw.zero_pad:
+            y = zero_pad_conv2d(y, sw.kernels[i][0], sw.bias[i])
+        else:
+            y = blc_conv2d(y, sw.kernels[i], sw.bias[i])
         if sw.use_gn:
             y = F.group_norm(y, sw.groups, sw.gn_scale[i], sw.gn_bias[i],
                              eps=1e-5)
@@ -148,8 +175,9 @@ def _launch(xs, sws, pool: bool = False, pyramid: int = 0):
     sw = sws[0]
     dev = xs[0].device
     for s in sws[1:]:
-        if (s.R, s.c_in, s.c_o, s.groups, s.use_gn, s.use_act) != (
-                sw.R, sw.c_in, sw.c_o, sw.groups, sw.use_gn, sw.use_act):
+        if (s.R, s.c_in, s.c_o, s.groups, s.use_gn, s.use_act,
+                s.zero_pad) != (sw.R, sw.c_in, sw.c_o, sw.groups, sw.use_gn,
+                                sw.use_act, sw.zero_pad):
             raise ValueError("layer_stacks: the stacks differ in shape")
     if not 1 <= len(xs) <= _cuda.MAX_LEVELS or len(xs) != len(sws):
         raise ValueError(f"layer_stacks: 1..{_cuda.MAX_LEVELS} fields, one "
@@ -166,8 +194,9 @@ def _launch(xs, sws, pool: bool = False, pyramid: int = 0):
                 raise ValueError(f"layer_stack {name} is on {t.device}, "
                                  f"x on {x.device}")
     hw = [(x.shape[1], x.shape[2]) for x in xs]
-    if min(min(h, w) for h, w in hw) < 6:
-        raise ValueError(f"layer_stack: fields must be at least 6×6: {hw}")
+    if not sw.zero_pad and min(min(h, w) for h, w in hw) < 6:
+        raise ValueError(f"layer_stack: learned-boundary fields must be at "
+                         f"least 6×6: {hw}")
     H, W = hw[0]
     if not 0 <= pyramid <= MAX_PYRAMID or min(H, W) >> pyramid < 1:
         raise ValueError(f"layer_stack: pyramid={pyramid} at {H}×{W}")
@@ -177,7 +206,8 @@ def _launch(xs, sws, pool: bool = False, pyramid: int = 0):
                else [None] * len(xs))
     groups = sw.groups if sw.use_gn else 1
     stats = torch.empty((len(xs) * sw.R * groups * 2,), device=dev)
-    stride = max(_cuda.work_items(h, w) for h, w in hw) * sw.c_o * 2
+    stride = max(_cuda.work_items(h, w, sw.zero_pad)
+                 for h, w in hw) * sw.c_o * 2
     partial = torch.empty((len(xs) * stride,), dtype=torch.float64,
                           device=dev)
     pooled = (torch.empty((sw.c_in, H // 2, W // 2), device=dev)
@@ -196,7 +226,7 @@ def _launch(xs, sws, pool: bool = False, pyramid: int = 0):
         stats.data_ptr(), partial.data_ptr(), stride,
         _cuda.counters(dev).data_ptr(), ptrs(pyr or [None]), pyramid,
         _cuda.ptr(pooled), sw.c_in, sw.c_o, sw.R, groups, int(sw.use_gn),
-        int(sw.use_act), _cuda.stream(xs[0]))
+        int(sw.use_act), int(sw.zero_pad), _cuda.stream(xs[0]))
     layer_stack.launches += 1
     _cuda.raise_on_error(err, "layer_stack")
     return ys, pooled, pyr
@@ -204,7 +234,7 @@ def _launch(xs, sws, pool: bool = False, pyramid: int = 0):
 
 def layer_stack(x: torch.Tensor, sw: StackWeights, pool: bool = False,
                 pyramid: int = 0):
-    """R learned-boundary layers on ``x`` (c_in, H, W) → (y (c_o, H, W),
+    """R layers on ``x`` (c_in, H, W) → (y (c_o, H, W),
     extra): extra is the VALID 2×2 average pool of ``x`` when ``pool``,
     the list of ``pyramid`` successive VALID 2×2 pools of ``y`` (odd sizes
     floor) when ``pyramid`` > 0, else None."""

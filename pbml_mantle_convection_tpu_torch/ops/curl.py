@@ -1,14 +1,18 @@
 """Curl heads: divergence-free velocities from a stream function.
 
-Counterparts of ``curl_head_padded`` and ``curl_head_valid`` in the JAX
-package's ``ops/curl.py``: u = ∂a/∂y, v = -∂a/∂x as VALID central
-differences. The padded head (NewFluidNet, reference:
-pytorch_networks_convae.py:1369-1386) replicate-pads them back to (H, W)
-with antisymmetric free-slip sidewalls and zeroed corners; the valid head
-(Transolver) returns them as they are.
+Counterparts of ``curl_head_padded``, ``curl_head_valid`` and
+``gaussian_blur_5x9`` in the JAX package's ``ops/curl.py``: u = ∂a/∂y,
+v = -∂a/∂x as VALID central differences. The padded head (NewFluidNet,
+reference: pytorch_networks_convae.py:1369-1386) replicate-pads them back
+to (H, W) with antisymmetric free-slip sidewalls and zeroed corners; the
+valid head (Transolver) returns them as they are. The U-Net's ``blurr``
+option smooths the stream function first (:func:`gaussian_blur_5x9`).
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from .stencils import dx_center, dy_center, replicate_pad
 
@@ -40,3 +44,27 @@ def curl_head_valid(a):
     """Transolver curl head: (…, H, W) stream function → (…, H-2, W-2)
     u, v (reference: Transolver_Structured_Mesh_2D-checkpoint.py:201-204)."""
     return dy_center(a)[..., :, 1:-1], -dx_center(a)[..., 1:-1, :]
+
+
+def gaussian_blur_5x9(a, sigma: float = 2.55):
+    """Separable 5×9 Gaussian blur of a ``[..., H, W]`` field with
+    replicate-padded edges: the JAX package's stand-in for the reference
+    U-Net's ``v2.GaussianBlur(kernel_size=(5, 9), sigma=(0.1, 5.0))``
+    (pytorch_networks_convae.py:1800-1801), whose sigma torch draws at
+    random per call; the fixed midpoint of that range here. Rows first,
+    then columns, each a sum over the taps in order."""
+    def kern(n):
+        x = np.arange(n) - (n - 1) / 2.0
+        k = np.exp(-0.5 * (x / sigma) ** 2)
+        return (k / k.sum()).tolist()
+
+    H, W = a.shape[-2:]
+    p = replicate_pad(a, (4, 4, 2, 2))
+    out = torch.zeros_like(a)
+    for i, k in enumerate(kern(5)):
+        out = out + k * p[..., i:i + H, 4:4 + W]
+    p2 = replicate_pad(out, (4, 4, 0, 0))
+    out = torch.zeros_like(a)
+    for j, k in enumerate(kern(9)):
+        out = out + k * p2[..., :, j:j + W]
+    return out

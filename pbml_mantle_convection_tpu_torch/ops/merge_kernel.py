@@ -4,9 +4,11 @@ Replaces the TPU kernel ``pbml_mantle_convection_tpu/ops/merge_kernel.py::
 _trunk_kernel`` (``TrunkStack``). It takes NewFluidNet's merge input —
 branch 0, the coarse branches upsampled to H × W (Keys a = -0.75,
 half-pixel, clamped indices), the network input — and runs the merge-1
-learned-boundary conv, bias, GroupNorm and GELU. On a CUDA tensor it
-launches ``csrc/trunk.cu``; on a CPU tensor it runs :func:`trunk_plain`
-(the resize matrices, ``torch.cat`` and :func:`layer_stack_plain`).
+conv (learned-boundary, or zero-padded when the merge layer's
+``StackWeights.zero_pad`` says so), bias, GroupNorm and GELU. On a CUDA
+tensor it launches ``csrc/trunk.cu``; on a CPU tensor it runs
+:func:`trunk_plain` (the resize matrices, ``torch.cat`` and
+:func:`layer_stack_plain`).
 
 What was built for the card (the note at the top of ``csrc/trunk.cu``):
 the layer kernel of ``csrc/blc_layer.cuh`` — 3xTF32 tensor-core conv, ring
@@ -32,16 +34,27 @@ from .resize import _resize_matrix_np, resize_bicubic_nchw
 
 def _taps(in_size: int, out_size: int):
     """The ≤4 non-zero entries of each row of the resize matrix, in
-    ascending index order, padded with zero weights at the first index:
-    (out_size, 4) int32 indices, (out_size, 4) weights."""
+    ascending index order, padded in front with zero weights at the index
+    below the first (clamped at 0): (out_size, 4) int32 indices,
+    (out_size, 4) weights. A row whose source point falls on a coarse
+    pixel has one non-zero entry, and its next row starts one index lower;
+    with the padding in front, the first index never decreases from one
+    row to the next, and the layer kernel reads the coarse columns of a
+    tile from the first index of its first column on (``stage_trunk`` in
+    ``csrc/blc_layer.cuh``). The zero-weight products come first in each
+    sum, so the sums are those of the non-zero entries, bit for bit."""
     M = _resize_matrix_np(in_size, out_size)
     idx = np.zeros((out_size, 4), np.int32)
     wts = np.zeros((out_size, 4), np.float64)
     for o in range(out_size):
         nz = np.nonzero(M[o])[0]
-        idx[o] = nz[0]
-        idx[o, :len(nz)] = nz
-        wts[o, :len(nz)] = M[o, nz]
+        k = 4 - len(nz)
+        idx[o, :k] = max(nz[0] - 1, 0)
+        idx[o, k:] = nz
+        wts[o, k:] = M[o, nz]
+    if np.any(np.diff(idx[:, 0]) < 0) or np.any(idx[:, :1] > idx):
+        raise AssertionError(f"resize taps {in_size} → {out_size}: the "
+                             f"first index decreases")
     return idx, wts
 
 
@@ -57,6 +70,11 @@ class TrunkWeights:
     y_w: torch.Tensor         # (L-1, H, 4)
     x_idx: torch.Tensor       # (L-1, W, 4) int32
     x_w: torch.Tensor         # (L-1, W, 4)
+
+    @property
+    def zero_pad(self) -> bool:
+        """The zero-padded instance of merge-1, else learned-boundary."""
+        return self.merge.zero_pad
 
 
 def trunk_weights(merge: StackWeights, coarse_hw: Sequence, H: int, W: int
@@ -111,7 +129,7 @@ def trunk(b0: torch.Tensor, coarse: Sequence[torch.Tensor], x: torch.Tensor,
                                             for v in hw])
     y = torch.empty((c_h, H, W), device=b0.device)
     stats = torch.empty((m.groups * 2,), device=b0.device)
-    partial = torch.empty((_cuda.work_items(H, W) * c_h * 2,),
+    partial = torch.empty((_cuda.work_items(H, W, m.zero_pad) * c_h * 2,),
                           dtype=torch.float64, device=b0.device)
     err = lib.pmc_trunk(
         b0.data_ptr(), ptrs, hws, n, x.data_ptr(), c_x, y.data_ptr(),
@@ -119,7 +137,8 @@ def trunk(b0: torch.Tensor, coarse: Sequence[torch.Tensor], x: torch.Tensor,
         _cuda.counters(b0.device).data_ptr(), tw.y_idx.data_ptr(),
         tw.y_w.data_ptr(), tw.x_idx.data_ptr(), tw.x_w.data_ptr(),
         m.frag.data_ptr(), m.bias.data_ptr(), m.gn_scale.data_ptr(),
-        m.gn_bias.data_ptr(), c_h, H, W, m.groups, _cuda.stream(b0))
+        m.gn_bias.data_ptr(), c_h, H, W, m.groups, int(m.zero_pad),
+        _cuda.stream(b0))
     trunk.launches += 1
     _cuda.raise_on_error(err, "trunk")
     return y

@@ -1,8 +1,8 @@
 """SimEngine — the coupled mantle-convection rollout on the card.
 
 Counterpart of the JAX package's ``sim/engine.py`` (reference rollout
-script: advect_wi_gaia.py:538-833) for the fluidnet surrogates and for no
-surrogate. Modes (advect_wi_gaia.py:218-222):
+script: advect_wi_gaia.py:538-833) for the fluidnet surrogates, the U-Net
+and no surrogate. Modes (advect_wi_gaia.py:218-222):
 
 * ``ML_STOKES`` (and ``ML``, which coincides with it in-framework) — the
   surrogate's velocities drive the explicit energy step every step;
@@ -29,7 +29,9 @@ in a step of the surrogate modes reads a value back to the host, so
 :meth:`SimEngine.multi_step` queues N steps without a round trip; the PT
 solve reads its residual once per ``check_every`` iterations, and the
 momentum skip counts steps on the host (one read of ``n_step`` per
-``multi_step``).
+``multi_step``). A stepper with ``net`` "unet" or "iunet" outside GAIA
+runs :meth:`SimEngine.step_unet` instead: the network advances u, v and T
+together, with dt from the driver's CFL rule, and no energy step runs.
 """
 
 from __future__ import annotations
@@ -176,9 +178,26 @@ class SimEngine:
         """One coupled step."""
         return self._step(state, int(state.n_step) if self._skip else 0)
 
+    def step_unet(self, state: SimState) -> SimState:
+        """One coupled U-Net step: the network advances (u, v, T)
+        jointly; dt comes from the driver-level CFL rule
+        (advect_wi_gaia.py:734-797, ``attempt_unet``)."""
+        s = self.stepper.scaler
+        u_prev, v_prev = state.u / s, state.v / s
+        dt = self.stepper.unet_dt(u_prev, v_prev)
+        p_prev = state.p if self.stepper.unet_p_pred else None
+        T_new, u, v, p, V = self.stepper.step_unet(state.T, u_prev, v_prev,
+                                                   dt, p_prev=p_prev)
+        if p is None:
+            p = state.p
+        return SimState(T=T_new, u=u, v=v, p=p, V=V, t=state.t + dt, dt=dt,
+                        n_step=state.n_step + 1, T_core=state.T_core)
+
     def _step(self, state: SimState, n_step: int) -> SimState:
         """One coupled step; ``n_step`` is the state's step counter, read
         on the host (used by the momentum skip only)."""
+        if self.stepper.net in ("unet", "iunet") and self.mode != "GAIA":
+            return self.step_unet(state)
         T = state.T
         if self._epi is not None:
             sp = self.stepper.stokes_psi(T)

@@ -1,13 +1,16 @@
 """TimeStepper: the coupled surrogate Stokes solve + energy step.
 
-Counterpart of the fluidnet branch of the JAX package's ``sim/stepper.py``
-(reference ``TS``, pytorch_networks_convae.py:266-475): per step the FK
-viscosity from the current temperature, the 7-channel surrogate input,
-the Stokes surrogate, velocity unscaling and the explicit
-advection–diffusion update with BC stamping. The energy update is
-``ops/advect_kernel.py::advect_diffuse_step_fused``: the CUDA kernel on
-the card, its plain version on the CPU. A stepper without a surrogate
-(``apply_fn=None``) serves the engine's ``mode="GAIA"``.
+Counterpart of the fluidnet and U-Net branches of the JAX package's
+``sim/stepper.py`` (reference ``TS``, pytorch_networks_convae.py:266-475):
+per step the FK viscosity from the current temperature, the 7-channel
+surrogate input, the Stokes surrogate, velocity unscaling and the
+explicit advection–diffusion update with BC stamping. The energy update
+is ``ops/advect_kernel.py::advect_diffuse_step_fused``: the CUDA kernel
+on the card, its plain version on the CPU. A stepper without a surrogate
+(``apply_fn=None``) serves the engine's ``mode="GAIA"``. With
+``net="unet"`` (or ``"iunet"``) the network predicts the new temperature
+itself (:meth:`TimeStepper.step_unet`, dt from :meth:`TimeStepper.
+unet_dt`): no energy step runs.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from ..constants import COORD_SCALE, SimParams, velocity_scaler, visc_feature
 from ..ops.advect_kernel import advect_diffuse_step_fused
 from ..ops.stencils import stamp_temperature_bc
 from ..physics.advection import grid_metrics
-from ..physics.viscosity import fk_viscosity_clipped
+from ..physics.viscosity import fk_viscosity, fk_viscosity_clipped
 from .grid import Grid
 
 
@@ -69,6 +72,29 @@ def assemble_fluidnet_input(T, static: StaticFields, params: SimParams):
     return x, V
 
 
+def assemble_unet_input(T, u_prev, v_prev, dt, static: StaticFields,
+                        params: SimParams, p_prev=None):
+    """10/11-channel NHWC U-Net input (xc/4, yc/4, dt, raq_nd, fkt_nd,
+    fkp_nd, log10(V)/8, T, u_prev, v_prev[, p_prev]) of (B, H, W) fields
+    → ((B, H, W, C), V), V the unclipped FK viscosity (reference:
+    pytorch_networks_convae.py:419-441, datasetio.py:258-274)."""
+    V = fk_viscosity(params.fkt, params.fkp,
+                     1.0 - static.yc_feat * COORD_SCALE, T)
+    b = T.shape[0]
+
+    def bcast(p):
+        return p.expand((b,) + tuple(p.shape))
+
+    chans = [bcast(static.xc_feat), bcast(static.yc_feat),
+             torch.as_tensor(dt, dtype=T.dtype, device=T.device)
+             .expand(T.shape),
+             bcast(static.raq_nd), bcast(static.fkt_nd),
+             bcast(static.fkp_nd), visc_feature(V), T, u_prev, v_prev]
+    if p_prev is not None:
+        chans.append(p_prev)
+    return torch.stack(chans, dim=-1), V
+
+
 class TimeStepper:
     """Coupled Stokes-surrogate + advection step (the reference ``TS``),
     forward only (no autograd graph is kept).
@@ -78,14 +104,19 @@ class TimeStepper:
     :class:`~..models.fast_path.FastNewFluidNet` runs one simulation per
     call (B calls per step) and also serves the fused path at B = 1
     (:meth:`stokes_psi`); None for a stepper without a surrogate.
-    ``core_cool`` leaves the bottom row of :meth:`step` free.
+    ``net`` "unet" or "iunet": ``apply_fn`` maps the U-Net input to
+    (u, v, p|None, T) (:meth:`step_unet`), with the previous pressure as
+    its 11th channel when ``unet_p_pred``. ``core_cool`` leaves the
+    bottom row of :meth:`step` free.
     """
 
     def __init__(self, grid: Grid, params: SimParams,
                  apply_fn: Optional[Callable[..., Any]],
                  cn_max: float = 0.99, core_cool: bool = False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None,
+                 net: str = "newfluidnet", unet_p_pred: bool = False):
         self.grid, self.params, self.apply_fn = grid, params, apply_fn
+        self.net, self.unet_p_pred = net, unet_p_pred
         self.cn_max, self.core_cool, self.dtype = cn_max, core_cool, dtype
         self.device = torch.device(device or "cuda")
         self._static = make_static_fields(grid, params, dtype, self.device)
@@ -153,3 +184,27 @@ class TimeStepper:
             core_cool=self.core_cool)
         return (stamp_temperature_bc(T_new, core_cool=self.core_cool), dt,
                 u, v, p, V)
+
+    def unet_dt(self, u_prev, v_prev, cn_max: float = 100.0):
+        """The U-Net rollout's driver-level CFL dt
+        (advect_wi_gaia.py:739-747) from *scaled* velocities: a 0-d
+        tensor."""
+        s = self.scaler
+        dx_min = 0.5 * self.grid.dy
+        uv = torch.maximum((u_prev * s).abs().max(), (v_prev * s).abs().max())
+        dt_advect = 0.5 * cn_max * dx_min / uv
+        dt_diffuse = 0.5 * (dx_min * dx_min) ** 2 / (2.0 * dx_min ** 2)
+        return torch.clamp(dt_advect, max=dt_diffuse)
+
+    @torch.no_grad()
+    def step_unet(self, T, u_prev, v_prev, dt, p_prev=None):
+        """One coupled U-Net step: the network predicts the stream
+        function and the new temperature (pytorch_networks_convae.py:
+        419-451, advect_wi_gaia.py:734-797); ``u_prev``, ``v_prev``
+        scaled. Returns (T_new, u, v, p, V), u and v unscaled."""
+        x, V = assemble_unet_input(T, u_prev, v_prev, dt, self._static,
+                                   self.params, p_prev=p_prev)
+        u, v, p, T_new = self.apply_fn(x)
+        T_new = stamp_temperature_bc(T_new, core_cool=self.core_cool)
+        T_new = torch.clamp(T_new, 0.0, 2.0)
+        return T_new, u * self.scaler, v * self.scaler, p, V

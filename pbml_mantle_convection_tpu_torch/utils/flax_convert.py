@@ -3,7 +3,8 @@
 ``from_jax_params`` turns a parameter tree of the JAX package (every leaf
 already a numpy array, so no JAX import is needed here) into a
 ``state_dict`` of this package's model of the same family: the FluidNet
-family (:class:`~..models.fluidnet.NewFluidNet`) and the Transolvers
+family (:class:`~..models.fluidnet.NewFluidNet`), the U-Net family
+(``models/unet.py``: ``Unet``, ``ConvAE``) and the Transolvers
 (``models/transolver.py``). A path's parts joined by dots name the
 parameter; the leaf is turned by its name and rank:
 

@@ -59,7 +59,8 @@ def test_rollout(capsys):
 @pytest.mark.parametrize("pad", ["learned", "zeros"])
 def test_batched_rollout(capsys, monkeypatch, pad):
     """--batch 2: B simulations per step, the fused executor once per
-    simulation (learned padding; zeros runs the module), sim-steps/s."""
+    simulation (learned padding and zero padding, its two instances),
+    sim-steps/s."""
     from pbml_mantle_convection_tpu_torch.models import fast_path
     calls = []
     apply = fast_path.FastNewFluidNet.apply_from_T
@@ -74,7 +75,7 @@ def test_batched_rollout(capsys, monkeypatch, pad):
     assert rec["unit"] == "steps/s" and rec["value"] == round(sps, 2)
     assert rec["sim_steps_per_s"] == round(2 * sps, 2)
     # warm-up and timed steps: 2 + 2, two simulations each
-    assert calls == ([1] * 8 if pad == "learned" else [])
+    assert calls == [1] * 8
 
 
 @pytest.mark.parametrize("network,H,W", [
@@ -184,11 +185,13 @@ def test_metric_name_matches_the_jax_cli(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--what", "train", "-net", "unet"], "ROADMAP queue 1 item 5"),
+    (["--what", "train", "-net", "halfnewfluidnet"],
+     "ROADMAP queue 1 item 6"),
     (["--what", "rollout", "--sharded"], "ROADMAP queue 1 item 7"),
     (["--what", "rollout", "-net", "transolver_structured"],
      "ROADMAP queue 1 item 6"),
-    (["--what", "inference", "-net", "unet"], "ROADMAP queue 1 item 5"),
+    (["--what", "inference", "-net", "halfnewfluidnet"],
+     "ROADMAP queue 1 item 6"),
     (["--what", "inference", "-net", "vit"], "ROADMAP queue 1 item 6"),
 ])
 def test_unported_choices_raise(argv, match):

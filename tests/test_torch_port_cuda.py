@@ -37,13 +37,15 @@ def cuda():
 
 
 def _random_stack(c_i, c_o, R, groups, use_gn=True, use_act=True, seed=0,
-                  device="cpu"):
+                  device="cpu", zero_pad=False):
+    """R random layers: learned-boundary (9 kernels each) or, with
+    ``zero_pad``, zero-padded SAME convs (1 kernel each)."""
     g = torch.Generator().manual_seed(seed)
     layers = []
     ci = c_i
     for _ in range(R):
         w9 = [torch.randn(c_o, ci, 5, 5, generator=g) / (5 * ci ** 0.5)
-              for _ in range(9)]
+              for _ in range(1 if zero_pad else 9)]
         layers.append((w9, 0.1 * torch.randn(c_o, generator=g),
                        1 + 0.1 * torch.randn(c_o, generator=g),
                        0.1 * torch.randn(c_o, generator=g)))
@@ -580,6 +582,144 @@ def test_cuda_module_convs_float32_at_default_flags(cuda, monkeypatch):
             for a, b in zip(got[:2], ref[:2]):
                 assert a.dtype == F32
                 assert _rel64(a, b) <= 1e-4
+
+
+ZERO_STACKS = [
+    (7, 16, 1, 4, True, True, (128, 506)),     # the stem
+    (16, 16, 6, 4, True, True, (64, 253)),     # a branch
+    (16, 16, 6, 4, True, True, (8, 31)),
+    (16, 16, 1, 1, False, True, (128, 506)),   # merge 2
+    (16, 1, 1, 1, False, False, (128, 506)),   # merge 3
+    (87, 16, 1, 4, True, True, (40, 70)),
+    (16, 8, 3, 2, True, True, (30, 45)),
+    (8, 8, 2, 2, True, True, (3, 5)),          # smaller than the window
+    (16, 16, 2, 4, True, True, (9, 33))]       # one past a tile each way
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", ZERO_STACKS)
+def test_cuda_layer_stack_zero_padding_matches_plain(cuda, cfg):
+    """The zero-padded instance (learned=False of the JAX kernel) against
+    ``F.conv2d(F.pad(x, (2, 2, 2, 2)), w, b)`` + GroupNorm + GELU within
+    1e-4 of max |plain|, at the flagship's shapes and at the edge cases
+    of its item decode (8×32 tiles from (0, 0) with the window at -2, no
+    ring items: fields smaller than one window, one past a tile each
+    way). The ring is where a clamped read (replicate padding) would
+    show, and where padding must stay 0 after the next layer's GroupNorm
+    and GELU are applied while it stages (R > 1). Same bits twice."""
+    c_i, c_o, R, groups, use_gn, use_act, (H, W) = cfg
+    sw = _random_stack(c_i, c_o, R, groups, use_gn, use_act, seed=3,
+                       device=cuda, zero_pad=True)
+    assert sw.zero_pad
+    x = torch.randn(c_i, H, W, generator=torch.Generator().manual_seed(4))
+    x = x.to(cuda)
+    n0 = layer_stack.launches
+    y, _ = layer_stack(x, sw)
+    assert layer_stack.launches == n0 + 1
+    y2, _ = layer_stack(x, sw)
+    ref, _ = layer_stack_plain(x, sw)
+    torch.cuda.synchronize()
+    assert y.shape == (c_o, H, W)
+    assert _rel(y, ref) <= 1e-4
+    assert torch.equal(y, y2)
+    # the ring alone: where replicate padding (a clamped read) would differ
+    edge = torch.ones(H, W, dtype=torch.bool, device=cuda)
+    edge[2:-2, 2:-2] = False
+    assert _rel(y[:, edge], ref[:, edge]) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(128, 506), (256, 256)])
+def test_cuda_layer_stacks_zero_padding_grouped_and_pyramid(cuda, H, W):
+    """The zero instance as the executor calls it: the stem with its
+    four pyramid pools, then the five branch stacks in one call per
+    layer; each against its plain version within 1e-4; 2 launches."""
+    g = torch.Generator().manual_seed(12)
+    stem = _random_stack(7, 16, 1, 4, seed=30, device=cuda, zero_pad=True)
+    sws = [_random_stack(16, 16, 6, 4, seed=40 + l, device=cuda,
+                         zero_pad=True) for l in range(5)]
+    x = torch.randn(7, H, W, generator=g).to(cuda)
+    n0 = layer_stack.launches
+    b0, pools = layer_stack(x, stem, pyramid=4)
+    ys = layer_stacks([b0, *pools], sws)
+    assert layer_stack.launches == n0 + 2
+    rb0, rpools = layer_stack_plain(x, stem, pyramid=4)
+    refs = layer_stacks_plain([b0, *pools], sws)
+    torch.cuda.synchronize()
+    for a, b in zip([b0, *pools, *ys], [rb0, *rpools, *refs]):
+        assert a.shape == b.shape
+        assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,c_h", [(128, 506, 16), (256, 256, 16),
+                                     (96, 130, 8)])
+def test_cuda_trunk_zero_padding_matches_plain(cuda, H, W, c_h):
+    """The trunk's zero instance: the upsampled branches and the skip
+    channels read 0 outside the field (not an interpolated or clamped
+    value), then the zero-padded merge-1, GroupNorm, GELU; within 1e-4 of
+    the plain version, one launch, the same bits twice."""
+    merge = _random_stack(5 * c_h + 7, c_h, 1, max(1, c_h // 4), seed=9,
+                          device=cuda, zero_pad=True)
+    hw = [(H // 2 ** l, W // 2 ** l) for l in range(1, 5)]
+    tw = trunk_weights(merge, hw, H, W)
+    assert tw.zero_pad
+    g = torch.Generator().manual_seed(10)
+    b0 = torch.randn(c_h, H, W, generator=g).to(cuda)
+    coarse = [torch.randn(c_h, h, w, generator=g).to(cuda) for h, w in hw]
+    x = torch.randn(7, H, W, generator=g).to(cuda)
+    n0 = trunk.launches
+    y = trunk(b0, coarse, x, tw)
+    assert trunk.launches == n0 + 1
+    y2 = trunk(b0, coarse, x, tw)
+    yp = trunk_plain(b0, coarse, x, tw)
+    torch.cuda.synchronize()
+    assert _rel(y, yp) <= 1e-4
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+def test_cuda_zero_padding_rollout_through_the_kernels(cuda):
+    """The flagship's widths with ``r_p="zeros"`` at 128×506, B = 1: the
+    fused executor runs the zero instances, 4 ``layer_stack`` + 1
+    ``trunk`` + 1 ``curl_advect_epilogue`` launches per step; 10 steps
+    agree with the module path within chip_smoke.py's TOL_ROLLOUT."""
+    import numpy as np
+    from pbml_mantle_convection_tpu_torch.cli.benchmark import (
+        initial_temperature)
+    from pbml_mantle_convection_tpu_torch.constants import SimParams
+    from pbml_mantle_convection_tpu_torch.models.fast_path import (
+        FastNewFluidNet)
+    from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet
+    from pbml_mantle_convection_tpu_torch.sim.engine import SimEngine
+    from pbml_mantle_convection_tpu_torch.sim.stepper import TimeStepper
+    H, W, K = 128, 506, 10
+    grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
+    model = NewFluidNet(levels=5, c_i=7, c_h=16, c_o=1, act_fn="gelu",
+                        r_p="zeros", loss_type="curl", repeats=6, f=5,
+                        p_pred=False, seed=0, device=cuda)
+    fast = FastNewFluidNet(model, H, W)
+    assert fast.zero_pad
+    finals = []
+    wrappers = (layer_stack, trunk, curl_advect_epilogue,
+                advect_diffuse_step_fused)
+    for apply_fn in (fast, model):
+        eng = SimEngine(TimeStepper(grid, SimParams(3.0, 1e8, 10.0),
+                                    apply_fn, cn_max=0.99, device=cuda))
+        before = [fn.launches for fn in wrappers]
+        state = eng.multi_step(eng.init_state(initial_temperature(grid)),
+                               K)[0]
+        torch.cuda.synchronize()
+        got = [fn.launches - n for fn, n in zip(wrappers, before)]
+        fused = apply_fn is fast
+        assert got == [4 * K * fused, K * fused, K * fused, K * (not fused)]
+        assert bool(torch.isfinite(state.T).all())
+        finals.append(state)
+    for name, tol in (("T", 1e-3), ("u", 2e-2), ("v", 2e-2)):
+        k, p = getattr(finals[0], name), getattr(finals[1], name)
+        rel = float((k - p).abs().max() / p.abs().max())
+        assert rel <= tol, (name, rel)
+    assert np.isclose(float(finals[0].t), float(finals[1].t), rtol=1e-3)
 
 
 @pytest.mark.cuda

@@ -172,9 +172,11 @@ def test_decay_heating_and_unsupported_configs():
                       device="cpu")
     with pytest.raises(ValueError, match="act_fn"):
         FastNewFluidNet(net, 16, 30)
-    with pytest.raises(ValueError, match="learned padding"):
+    # zero padding runs the kernels' zero instance; replicate padding has
+    # no kernel instance
+    with pytest.raises(ValueError, match="learned or zero padding"):
         FastNewFluidNet(NewFluidNet(levels=2, c_i=7, c_h=8, c_o=1,
-                                    act_fn="gelu", r_p="zeros",
+                                    act_fn="gelu", r_p="replicate",
                                     loss_type="curl", f=5, p_pred=False,
                                     device="cpu"), 16, 30)
 

@@ -189,7 +189,7 @@ def test_remat_equals_no_remat(case):
 
 # ---------------------------------------------------------------------------
 # the U-Net and ConvAE branches of make_loss_fn, through stand-in networks
-# (the port does not build those models yet: ROADMAP queue 1 item 5)
+# (on the real networks: tests/test_torch_port_unet.py)
 # ---------------------------------------------------------------------------
 
 

@@ -232,8 +232,8 @@ def test_registry_builds_the_jax_models(net):
         assert tuple(v.shape) == tuple(ref[k].shape), k
 
 
-@pytest.mark.parametrize("net", ["fluidnet", "unet", "convae", "vit",
-                                 "multiscalenewfluidnet"])
+@pytest.mark.parametrize("net", ["fluidnet", "ifluidnet", "halfnewfluidnet",
+                                 "vit", "multiscalenewfluidnet"])
 def test_registry_raises_for_unported_networks(net):
     cfg = treg.ModelConfig(network=net)
     assert cfg.channels == jreg.ModelConfig(network=net).channels

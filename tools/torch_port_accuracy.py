@@ -37,6 +37,9 @@ which kernels each leg ran. One JSON line per run: grid, mode, steps, the
 card's name and power limit, the float64 leg's seconds and launches, each
 variant's three numbers and launches.
 
+``--pad zeros`` runs the flagship with zero padding (the layer kernels'
+zero-padded instance) instead of learned padding.
+
 Runs (default): the flagship ML_STOKES rollout at 128×506 and 256×256,
 and ML_STOKES with core cooling, Di=0.5 and radioactive decay (the mode
 ``chip_smoke.py`` drives) at 128×506::
@@ -222,6 +225,10 @@ def build_parser():
                         f"modes: {sorted(MODES)}")
     p.add_argument("--steps", type=int, default=500)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--pad", type=str, default="learned",
+                   choices=["learned", "zeros"],
+                   help="the flagship's padding: learned, or zeros (the "
+                        "layer kernels' zero-padded instance)")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
     return p
@@ -233,7 +240,8 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("torch_port_accuracy: no CUDA device (pass "
                          "--device cpu to run on the CPU)")
-    weights = flagship_weights(args.seed)
+    arch = {**ARCH, "r_p": args.pad}
+    weights = flagship_weights(args.seed, arch)
     out = []
     for run in args.run or RUNS:
         grid, mode = run.split(":", 1)
@@ -241,7 +249,8 @@ def main(argv=None):
         if mode not in MODES:
             raise SystemExit(f"torch_port_accuracy: mode {mode!r}: one of "
                              f"{sorted(MODES)}")
-        rec = measure(weights, H, W, args.steps, mode, device=device)
+        rec = {"r_p": args.pad, **measure(weights, H, W, args.steps, mode,
+                                          device=device, arch=arch)}
         print(json.dumps(rec), flush=True)
         out.append(rec)
     return out

@@ -11,7 +11,10 @@ that tree's code and measures
   (``chip_smoke.py::run_main_path``: best of 3 × 200 steps after 20
   warm-up steps);
 * ms per ``transolver_structured`` forward at 128×506 through the CLI
-  (``cli/benchmark.py --what inference``, 50 forwards, TF32 off).
+  (``cli/benchmark.py --what inference``, 50 forwards, TF32 off);
+* the device-only ms of the flagship's 4 ``layer_stack`` calls of a step
+  (summed) and of its ``trunk`` call at 128×506, learned padding, each
+  call queued 200 times behind a spin (``chip_smoke.py::queued_ms``).
 
 The two trees run in the order a, b, b, a, a, b, ... (``--pairs`` pairs);
 one JSON line per run, then each tree's runs and medians. Needs the card.
@@ -32,6 +35,32 @@ import re
 import statistics
 import subprocess
 import sys
+
+
+def layer_kernel_ms(H=128, W=506) -> tuple[float, float]:
+    """Device-only ms of the flagship's 4 ``layer_stack`` calls of one
+    step (summed) and of its ``trunk`` call at H × W, on the main path's
+    inputs, with the tree's own code."""
+    from chip_smoke import flagship, queued_ms
+    from pbml_mantle_convection_tpu_torch.ops.branch_kernel import (
+        layer_stack, layer_stacks)
+    from pbml_mantle_convection_tpu_torch.ops.merge_kernel import trunk
+    _, fast, engine, T0 = flagship(H, W, "cuda")
+    eng = engine(fast)
+    eng.stepper._bound_fast()          # binds the static input channels
+    x = fast.input_from_T(eng.init_state(T0).T)
+    n_pyr = len(fast.branches) - 1
+    b, pyr = layer_stack(x, fast.stem, pyramid=n_pyr)
+    xs = [b, *pyr]
+    outs = layer_stacks(xs, fast.branches)
+    y1 = trunk(outs[0], outs[1:], x, fast.trunk)
+    y2, _ = layer_stack(y1, fast.merge2)
+    calls = (lambda: layer_stack(x, fast.stem, pyramid=n_pyr),
+             lambda: layer_stacks(xs, fast.branches),
+             lambda: layer_stack(y1, fast.merge2),
+             lambda: layer_stack(y2, fast.merge3))
+    return (sum(queued_ms(c) for c in calls),
+            queued_ms(lambda: trunk(outs[0], outs[1:], x, fast.trunk)))
 
 
 def measure() -> dict:
@@ -62,9 +91,12 @@ def measure() -> dict:
                         "128", "--W", "506", "--device", "cuda"])
     steps = dict(re.findall(r"main path (\d+x\d+): ([\d.]+) steps/s",
                             out.getvalue()))
+    stack_ms, trunk_ms = layer_kernel_ms()
     return {"steps_per_s_128x506": float(steps["128x506"]),
             "steps_per_s_256x256": float(steps["256x256"]),
-            "transolver_forward_ms": ms}
+            "transolver_forward_ms": ms,
+            "layer_stack_device_ms_128x506": stack_ms,
+            "trunk_device_ms_128x506": trunk_ms}
 
 
 def main() -> int:
