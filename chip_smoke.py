@@ -104,7 +104,21 @@ Run from the repository root, with no arguments::
    against float64 at B = 2 with the TF32 control and at B = 8 for
    weight seeds 0-2; no kernel wrapper launches (the U-Net runs no
    kernel, on JAX neither);
-10. prints one JSON line of per-kernel numbers (launches summed over
+10. drives the drivers at 128×506 with the flagship's seed-0 weights,
+   written once as a port checkpoint and read through ``--nn_dir``:
+   (a) ``cli/rollout.py -m ML_STOKES --max_steps 2000`` (``rollout_torch``,
+   chunks of 10 steps): the six files of the run directory, 2000 finite
+   T_vec values, 4 + 1 + 1 + 0 launches per step (its warm-up step
+   counted), the final T against one ``SimEngine.multi_step(2000)`` from
+   the same T0 (≤ ``TOL_DRIVER_T``, bitwise printed), steps/s from
+   sum(TS_vec) beside phase 3's ``bench_torch.py`` figure; (b) ``--engine
+   native`` for 20 steps (the C++ engine on the host, the surrogate on
+   the card: 4 + 1 + 0 + 1 per step, ms/step); (c) ``-m GAIA`` for 3 steps
+   (the C++ momentum solve, no launch, ms/step); (d) ``-m ML_PRE`` for 5
+   steps (4 + 1 + 0 + 1 per step); (e) ``cli/analyze.py`` over (c) and
+   (b), (c) the baseline (finite Pearson values); the counts stay out of
+   the kernels line;
+11. prints one JSON line of per-kernel numbers (launches summed over
    phases 3, 4, 5 and 7; the layer kernels' zero instance, its launches
    from phase 3c alone, under ``zero_instance``, the top-level counts
    being the learned instance's), the card line again, and last ``{"ok": true,
@@ -742,10 +756,12 @@ def run_main_path(counters):
     """Phase 3: the flagship rollout through the kernels at both grids,
     timed by ``bench_torch.main()`` (its JSON line; it fails on a
     non-finite T). Every count is set to 0 just before each run and read
-    just after it. Returns the launch counts of both runs."""
+    just after it. Returns the launch counts of both runs and the steps/s
+    of each grid."""
     import os
     import bench_torch
     launch = {n: 0 for n in counters}
+    sps = {}
     saved = {k: os.environ.get(k) for k in ("PMC_BENCH_H", "PMC_BENCH_W")}
     try:
         for H, W in ((128, 506), (256, 256)):
@@ -766,13 +782,14 @@ def run_main_path(counters):
                   f"4+1+1+0 per step, {time.perf_counter() - t0:.1f} s")
             for k in launch:
                 launch[k] += got[k]
+            sps[H, W] = rec["value"]
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    return launch
+    return launch, sps
 
 
 def compare_paths(H, W, K=10, r_p="learned"):
@@ -2084,6 +2101,193 @@ def run_unet(counters, H=128, W=506, steps=20, device="cuda"):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# phase 10: the flagship through the port's rollout CLI at 128×506, its
+# seeded weights written once as a port Trainer checkpoint (epoch 0 of a
+# two-line loss log) so that every leg reads the same weights
+DRIVER_ARGV = ["-raq", "3.0", "-fkt", "1e8", "-fkp", "10", "-l", "5", "-f",
+               "16", "-r", "6", "-k", "5", "-s", "0", "-pad", "learned",
+               "-init", "perfect"]
+DRIVER_STEPS = {"torch": 2000, "native": 20, "gaia": 3, "ml_pre": 5}
+# the CLI's chunked rollout against one multi_step of the same length from
+# the same T0 and weights (the same kernels in the same order: bitwise
+# unless a kernel's sums are not repeatable)
+TOL_DRIVER_T = 1e-6
+RUN_FILES = ("Gaia.ini", "ml_prof.txt", "snapshots_{m}.pkl", "T_vec_{m}.pkl",
+             "t_vec_{m}.pkl", "TS_vec_{m}.pkl")
+
+
+def driver_checkpoint(nn_dir, device="cuda"):
+    """The flagship's seed-0 weights as the port Trainer writes them:
+    ``0_fluidnet_uvp.ckpt`` beside a two-epoch ``fluidnet_uvpT.txt`` (the
+    CLI then loads epoch 0, the second-to-last)."""
+    from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet
+    from pbml_mantle_convection_tpu_torch.train.trainer import LOG_HEADER
+    from pbml_mantle_convection_tpu_torch.utils.checkpoint import (
+        save_checkpoint)
+    model = NewFluidNet(levels=5, c_i=7, c_h=16, c_o=1, act_fn="gelu",
+                        r_p="learned", loss_type="curl", repeats=6, f=5,
+                        p_pred=False, seed=0, device=device)
+    save_checkpoint(os.path.join(nn_dir, "0_fluidnet_uvp.ckpt"),
+                    {"model": model.state_dict(), "epoch": 0})
+    with open(os.path.join(nn_dir, "fluidnet_uvpT.txt"), "w") as f:
+        f.write(LOG_HEADER + "".join(f"{e},[1.0, 1.0],[1.0, 1.0],0.001\n"
+                                     for e in range(2)))
+
+
+def driver_leg(counters, name, argv, out_dir, want):
+    """One run of ``cli/rollout.py::main(argv)`` into ``out_dir``: every
+    count set to 0 just before it and read just after; the counts must be
+    ``want`` (the others 0) and the run directory must hold the six
+    files. Returns (main's result, the run directory, its pickles)."""
+    from pbml_mantle_convection_tpu_torch.cli import rollout
+    from pbml_mantle_convection_tpu_torch.utils.checkpoint import load_pickle
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = rollout.main(argv + ["--out_dir", out_dir])
+    wall = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in counters.items()}
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"drivers ({name}): launches {got}, want {full}")
+    runs = os.listdir(out_dir)
+    if len(runs) != 1:
+        raise AssertionError(f"drivers ({name}): run directories {runs}")
+    run = os.path.join(out_dir, runs[0])
+    mode = argv[argv.index("-m") + 1]
+    missing = [f.format(m=mode) for f in RUN_FILES
+               if not os.path.isfile(os.path.join(run, f.format(m=mode)))]
+    if missing:
+        raise AssertionError(f"drivers ({name}): {run} lacks {missing}")
+    pk = {k: load_pickle(os.path.join(run, f"{k}_{mode}.pkl"))
+          for k in ("T_vec", "t_vec", "TS_vec", "snapshots")}
+    print(f"drivers ({name}): {runs[0]}, launches {got}, {wall:.1f} s")
+    return out, run, pk
+
+
+def run_drivers(counters, bench_sps, device="cuda", steps=DRIVER_STEPS):
+    """Phase 10: the drivers on the card (``cli/rollout.py``,
+    ``sim/rollout.py``, ``cli/analyze.py``), the flagship at 128×506,
+    float32, seeded weights through ``--nn_dir``:
+    (a) ML_STOKES through ``rollout_torch``, 2000 steps in chunks of 10:
+    4 + 1 + 1 + 0 launches per step (the warm-up step included in the
+    count), 2000 finite T_vec values, the final T against one
+    ``SimEngine.multi_step`` of 2000 steps (≤ TOL_DRIVER_T; bitwise
+    printed), steps/s from sum(TS_vec) beside ``bench_sps`` (phase 3's
+    ``bench_torch.py`` figure of the same run);
+    (b) ``--engine native`` (the C++ engine on the host, the surrogate on
+    the card), 20 steps: 4 + 1 + 0 + 1 per step, the mean T of every step
+    and the kept fields finite and in [0, 2];
+    (c) ``-m GAIA`` (the C++ urf_mm momentum solve), 3 steps, no launch;
+    (d) ML_PRE through ``rollout_torch``, 5 steps: 4 + 1 + 0 + 1 per step;
+    (e) ``cli/analyze.py`` over (c) and (b), (c) the baseline: a row each,
+    finite Pearson values. The counts stay out of the kernels line."""
+    import tempfile
+    import torch
+    from pbml_mantle_convection_tpu_torch.cli import analyze, rollout
+    from pbml_mantle_convection_tpu_torch.constants import SimParams
+    from pbml_mantle_convection_tpu_torch.sim.engine import SimEngine
+    from pbml_mantle_convection_tpu_torch.sim.grid import Grid
+    from pbml_mantle_convection_tpu_torch.sim.rollout import WARMUP_STEPS
+    from pbml_mantle_convection_tpu_torch.sim.stepper import TimeStepper
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        nn_dir = os.path.join(root, "nn")
+        driver_checkpoint(nn_dir, device)
+        argv = DRIVER_ARGV + ["--nn_dir", nn_dir, "--device", device]
+
+        # (a) ML_STOKES on the card
+        n = steps["torch"]
+        argv_a = ["-m", "ML_STOKES", *argv, "--max_steps", str(n)]
+        state, run_a, pk = driver_leg(
+            counters, "a: ML_STOKES", argv_a, os.path.join(root, "a"),
+            rollout_launches(1, n + WARMUP_STEPS))
+        T_vec = np.asarray(pk["T_vec"])
+        if T_vec.shape != (n,) or not np.isfinite(T_vec).all():
+            raise AssertionError(f"drivers (a): T_vec {T_vec.shape}, "
+                                 f"finite {np.isfinite(T_vec).all()}")
+        if len(pk["snapshots"]["T"]) != n // max(1, n // 200):
+            raise AssertionError("drivers (a): snapshots "
+                                 f"{len(pk['snapshots']['T'])}")
+        grid = Grid()
+        args = rollout.build_parser().parse_args(argv_a)
+        apply_fn = rollout.build_surrogate(args, grid, torch.device(device))
+        eng = SimEngine(TimeStepper(grid, SimParams(3.0, 1e8, 10.0),
+                                    apply_fn, cn_max=0.99, device=device))
+        T0 = rollout.initial_temperature(grid, 3.0, 1e8, 10.0, "perfect")
+        ref, _ = eng.multi_step(
+            eng.init_state(torch.as_tensor(T0, dtype=torch.float32)[None]),
+            n)
+        err = float((state.T - ref.T).abs().max())
+        print(f"drivers (a): final T vs one multi_step({n}) max_abs_err="
+              f"{err:.3e} (tol {TOL_DRIVER_T}), bitwise "
+              f"{bool(torch.equal(state.T, ref.T))}")
+        if not err <= TOL_DRIVER_T:
+            raise AssertionError(f"drivers (a): final T off by {err:.3e}")
+        sps = n / float(np.sum(pk["TS_vec"]))
+        print(f"drivers (a): {sps:.2f} steps/s from sum(TS_vec) ({n} steps "
+              f"in chunks of {max(1, n // 200)}), bench_torch.py 128x506 "
+              f"{bench_sps} steps/s in this run ({sps / bench_sps:.3f} of "
+              f"it)")
+
+        # (b) the native engine, the surrogate on the card
+        n = steps["native"]
+        out_b, run_b, pk = driver_leg(
+            counters, "b: --engine native",
+            ["-m", "ML_STOKES", *argv, "--engine", "native",
+             "--max_steps", str(n)], os.path.join(root, "b"),
+            {"layer_stack": 4 * n, "trunk": n,
+             "advect_diffuse_step_fused": n})
+        # the mean T of every step (a NaN or inf anywhere shows in it) and
+        # every field the run kept
+        T_vec = np.asarray(out_b[3])
+        kept = np.stack(out_b[2]["T"])
+        if (out_b[1] != n or not np.isfinite(T_vec).all()
+                or not np.isfinite(kept).all() or T_vec.min() < 0.0
+                or T_vec.max() > 2.0 or kept.min() < 0.0 or kept.max() > 2.0):
+            raise AssertionError(f"drivers (b): {out_b[1]} steps, mean T "
+                                 f"{T_vec.min()}..{T_vec.max()}, kept T "
+                                 f"{kept.min()}..{kept.max()}")
+        print(f"drivers (b): {1e3 * np.mean(out_b[5]):.2f} ms/step, median "
+              f"{1e3 * np.median(out_b[5]):.2f} (the native engine on the "
+              f"host, the surrogate on the card), mean T {T_vec[-1]:.6f}")
+
+        # (c) GAIA: the native engine alone
+        n = steps["gaia"]
+        out_c, run_c, _ = driver_leg(
+            counters, "c: GAIA",
+            ["-m", "GAIA", *argv, "--max_steps", str(n)],
+            os.path.join(root, "c"), {})
+        if out_c[1] != n or not np.isfinite(out_c[3]).all():
+            raise AssertionError(f"drivers (c): {out_c[1]} steps")
+        print(f"drivers (c): {1e3 * np.mean(out_c[5]):.1f} ms/step, median "
+              f"{1e3 * np.median(out_c[5]):.1f} (the C++ urf_mm momentum "
+              f"solve, {n} steps)")
+
+        # (d) ML_PRE on the card
+        n = steps["ml_pre"]
+        w = n + WARMUP_STEPS
+        _, _, pk = driver_leg(
+            counters, "d: ML_PRE",
+            ["-m", "ML_PRE", *argv, "--max_steps", str(n)],
+            os.path.join(root, "d"),
+            {"layer_stack": 4 * w, "trunk": w,
+             "advect_diffuse_step_fused": w})
+        if not np.isfinite(pk["T_vec"]).all():
+            raise AssertionError("drivers (d): T_vec not finite")
+        print(f"drivers (d): {1e3 * np.mean(pk['TS_vec']):.2f} ms/step, "
+              f"median {1e3 * np.median(pk['TS_vec']):.2f}")
+
+        # (e) the analysis CLI, (c) as the baseline
+        rows = analyze.main([run_c, run_b, "--truth", run_c])
+        if len(rows) != 2 or not all(np.isfinite(r["pearson_T"])
+                                     for r in rows):
+            raise AssertionError(f"drivers (e): rows {rows}")
+    print(f"drivers: {time.perf_counter() - t_phase:.1f} s (launch counts "
+          f"kept out of the kernels line)")
+
+
 # ROADMAP §3 fault 7, repaired: the flagship's train-step gradients against
 # float64, at B = 2 and at the production batch B = 8, weight seeds 0-2
 TOL_FAULT7 = 1e-5
@@ -2170,7 +2374,7 @@ def main() -> int:
     rec = check_kernels(128, 506)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     counters = bench_torch.counters()
-    launch = run_main_path(counters)
+    launch, bench_sps = run_main_path(counters)
     compare_paths(128, 506)
     t0 = time.perf_counter()
     for k, n in run_modes(counters).items():
@@ -2208,6 +2412,7 @@ def main() -> int:
     t0 = time.perf_counter()
     run_unet(counters)
     print(f"unet: {time.perf_counter() - t0:.1f} s")
+    run_drivers(counters, bench_sps[128, 506])
 
     floor = launch_floor(1, ENERGY_BLOCK)
     print(f"launch floor: an empty kernel of one block of {ENERGY_BLOCK} "

@@ -13,11 +13,15 @@ and renamed, so a reader never sees half a checkpoint.
 The JAX package's Orbax backend (sharding-aware, multi-host) has no
 counterpart yet (ROADMAP queue 1 item 7, with ``torch.distributed.
 checkpoint``).
+
+:func:`save_pickle` and :func:`load_pickle` write and read the rollout
+drivers' pickles (``sim/rollout.py``), as the JAX module's do.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Any
 
 import torch
@@ -39,3 +43,17 @@ def restore_checkpoint(path: str, device="cpu") -> Any:
     parameters' device, and a (non-capturable) Adam keeps its step counts
     on the host."""
     return torch.load(path, map_location=device, weights_only=True)
+
+
+def save_pickle(path: str, obj: Any) -> None:
+    """Rollout snapshot pickles (the reference's periodic dumps,
+    advect_wi_gaia.py:659-668). ``obj`` holds numpy arrays and Python or
+    numpy scalars only, so a reader needs no torch."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
+
+
+def load_pickle(path: str) -> Any:
+    with open(path, "rb") as f:
+        return pickle.load(f)
