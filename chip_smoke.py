@@ -118,7 +118,23 @@ Run from the repository root, with no arguments::
    steps (4 + 1 + 0 + 1 per step); (e) ``cli/analyze.py`` over (c) and
    (b), (c) the baseline (finite Pearson values); the counts stay out of
    the kernels line;
-11. prints one JSON line of per-kernel numbers (launches summed over
+11. runs the other models at 128×506 under PyTorch's default flags:
+   (a) ``cli/rollout.py`` at its default ``-s 1`` (the symmetric
+   flagship on the module path) for 300 steps, 0 + 0 + 0 + 1 launches per
+   step, steps/s from sum(TS_vec), its forward against float64; (b) the
+   ``blurr`` flagship through the fused executor, 4 + 1 + 0 + 1 per step
+   (no fused epilogue: it would skip the blur), steps/s beside phase 3's,
+   10 steps against its module path; (c) ``cli/benchmark.py --what
+   inference|rollout|train`` for FluidNet (-l 5 -r 4), the multi-scale
+   ensemble (-l 4 -r 4) and the ViT (defaults; train B = 4, the others
+   B = 8), 0 + 0 + 0 + 1 per rollout step; (d) the spectral network
+   against float64 on cuFFT; (e) train-step gradients of the symmetric
+   flagship, FluidNet, the ensemble, the spectral network and the ViT at
+   B = 2 against float64 (``TOL_TRAIN_GRAD``; above it, a loss kink
+   located by ``locate_kink`` with the backward held to the bound); (f) a
+   dropout train step repeated from its generator's seed; the counts stay
+   out of the kernels line;
+12. prints one JSON line of per-kernel numbers (launches summed over
    phases 3, 4, 5 and 7; the layer kernels' zero instance, its launches
    from phase 3c alone, under ``zero_instance``, the top-level counts
    being the learned instance's), the card line again, and last ``{"ok": true,
@@ -1662,6 +1678,89 @@ def train_gradients(net, x, y, net_name, leg="step", extra=None):
     return err / top, want, got
 
 
+# a loss kink crossed by rounding (ROADMAP §3 faults 8 and 10): float32's
+# gradient at the last conv's output may leave float64's at a few pixels
+# where an L1 term of the loss sits within rounding of 0; everywhere else
+# the two agree within KINK_ELSEWHERE of its max, and at most KINK_PIXELS
+# pixels jump
+KINK_ELSEWHERE = 1e-5
+KINK_PIXELS = 64
+
+
+def locate_kink(net, x, y, net_name, last, extra=None):
+    """Where a float32 train step's gradient error enters: the loss
+    gradient at the output of the module ``last`` (the last conv, before
+    the mean subtraction and the head) in float32 and in float64, the
+    pixels where they differ by more than 1e-3 of its max, and the
+    float64 network's parameter gradients when float32's output gradient
+    is fed back through it (``fed``). Returns a dict: ``step_rel`` (the
+    reading of :func:`train_gradients`), ``fed_vs_f32_rel`` (the float32
+    step's backward arithmetic given the same output gradient; max |diff|
+    / max |f64| over all parameters), ``fed_vs_f64_rel``,
+    ``out_grad_rel_elsewhere`` (away from the jumps), ``n_jumps`` and the
+    first 8 ``jumps`` (index into the output, both gradients there over
+    float64's max)."""
+    import copy
+
+    import torch
+    from pbml_mantle_convection_tpu_torch.models.layers import (
+        float32_convs)
+    from pbml_mantle_convection_tpu_torch.train.train_step import (
+        TrainStepConfig, make_loss_fn)
+    cfg = TrainStepConfig(net=net_name, loss_scale=True,
+                          loss_derivative=True, loss_type="curl")
+    nets = {"f32": net, "f64": copy.deepcopy(net).double()}
+    out, grads = {}, {}
+    for key, m in nets.items():
+        dt = torch.float32 if key == "f32" else torch.float64
+        batch = {k: t.to(dt) for k, t in
+                 {"x": x, "y": y, **(extra or {})}.items()}
+        seen = []
+
+        def keep(mod, i, o, seen=seen):
+            o.retain_grad()
+            seen.append(o)
+        h = m.get_submodule(last).register_forward_hook(keep)
+        with float32_convs(batch["x"]):
+            m.zero_grad(set_to_none=True)
+            make_loss_fn(m, cfg)(batch).total.backward()
+        h.remove()
+        out[key] = seen[0]
+        grads[key] = {n: q.grad.double() for n, q in m.named_parameters()
+                      if q.grad is not None}
+    g32, g64 = out["f32"].grad.double(), out["f64"].grad
+    top = float(g64.abs().max())
+    d = (g32 - g64).abs()
+    jumps = (d > 1e-3 * top).nonzero().tolist()
+    m64 = nets["f64"]
+    m64.zero_grad(set_to_none=True)
+    seen = []
+    h = m64.get_submodule(last).register_forward_hook(
+        lambda mod, i, o: seen.append(o) and None)
+    make_loss_fn(m64, cfg)({k: t.double() for k, t in
+                            {"x": x, "y": y, **(extra or {})}.items()})
+    h.remove()
+    params = {n: q for n, q in m64.named_parameters() if n in grads["f64"]}
+    fed = torch.autograd.grad(seen[0], list(params.values()),
+                              grad_outputs=g32, allow_unused=True)
+    fed = {n: torch.zeros_like(q) if f is None else f
+           for (n, q), f in zip(params.items(), fed)}
+    gtop = max(float(w.abs().max()) for w in grads["f64"].values())
+
+    def rel(a, b):
+        return max(float((a[n] - b[n]).abs().max()) for n in b) / gtop
+    return {"step_rel": rel(grads["f32"], grads["f64"]),
+            "fed_vs_f32_rel": rel(fed, grads["f32"]),
+            "fed_vs_f64_rel": rel(fed, grads["f64"]),
+            "out_grad_rel": float(d.max()) / top,
+            "out_grad_rel_elsewhere": float(
+                torch.where(d > 1e-3 * top, 0.0, d).max()) / top,
+            "n_jumps": len(jumps),
+            "jumps": [{"at": idx, "f32": float(g32[tuple(idx)]) / top,
+                       "f64": float(g64[tuple(idx)]) / top}
+                      for idx in jumps[:8]]}
+
+
 def worst_parameter(got, want) -> str:
     """The parameter with the largest max |diff| of ``got`` against
     ``want``, that diff over its own max |want| and that max over the
@@ -2116,6 +2215,20 @@ RUN_FILES = ("Gaia.ini", "ml_prof.txt", "snapshots_{m}.pkl", "T_vec_{m}.pkl",
              "t_vec_{m}.pkl", "TS_vec_{m}.pkl")
 
 
+def _zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _launched(counters, want, name):
+    """The counts since :func:`_zero` must be ``want`` (the others 0)."""
+    got = {k: fn.launches for k, fn in counters.items()}
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{name}: launches {got}, want {full}")
+    return got
+
+
 def driver_checkpoint(nn_dir, device="cuda"):
     """The flagship's seed-0 weights as the port Trainer writes them:
     ``0_fluidnet_uvp.ckpt`` beside a two-epoch ``fluidnet_uvpT.txt`` (the
@@ -2141,15 +2254,11 @@ def driver_leg(counters, name, argv, out_dir, want):
     files. Returns (main's result, the run directory, its pickles)."""
     from pbml_mantle_convection_tpu_torch.cli import rollout
     from pbml_mantle_convection_tpu_torch.utils.checkpoint import load_pickle
-    for fn in counters.values():
-        fn.launches = 0
+    _zero(counters)
     t0 = time.perf_counter()
     out = rollout.main(argv + ["--out_dir", out_dir])
     wall = time.perf_counter() - t0
-    got = {k: fn.launches for k, fn in counters.items()}
-    full = {k: want.get(k, 0) for k in got}
-    if got != full:
-        raise AssertionError(f"drivers ({name}): launches {got}, want {full}")
+    got = _launched(counters, want, f"drivers ({name})")
     runs = os.listdir(out_dir)
     if len(runs) != 1:
         raise AssertionError(f"drivers ({name}): run directories {runs}")
@@ -2345,6 +2454,289 @@ def run_train(counters, device="cuda"):
           f"trains)")
 
 
+# phase 11: the other models (ROADMAP queue 1 item 6) at 128×506, float32,
+# PyTorch's default flags (cuDNN's TF32 allowed; the port's convs keep
+# their float32 guard)
+OTHER_ARGV = ["-m", "ML_STOKES", "-raq", "3.0", "-fkt", "1e8", "-fkp", "10",
+              "-l", "5", "-f", "16", "-r", "6", "-k", "5", "-pad", "learned"]
+OTHER_STEPS = 300
+# cli/benchmark.py's other networks: their experiments' widths, train batch
+OTHER_BENCH = {"fluidnet": (["-l", "5", "-r", "4"], 8),
+               "multiscalenewfluidnet": (["-l", "4", "-r", "4"], 8),
+               "vit": ([], 4)}
+# the networks of the gradient leg (B = 2): (name, ModelConfig fields)
+OTHER_GRAD_NETS = (
+    ("symmetric flagship", dict(network="newfluidnet", levels=5, repeats=6,
+                                use_symm=True)),
+    ("fluidnet -l 5 -r 4", dict(network="fluidnet", levels=5, repeats=4)),
+    ("multiscale -l 4 -r 4", dict(network="multiscalenewfluidnet", levels=4,
+                                  repeats=4)),
+    ("spectral -l 3 -r 2", dict(network="newfluidnet", levels=3, repeats=2,
+                                r_p="zeros", spectral_conv=True)),
+    ("vit (ModelConfig defaults)", dict(network="vit")))
+
+
+def other_model(fields, device="cuda", seed=0, H=128, W=506):
+    """The registry's model of ``fields`` (c_h 16, k 5, learned padding,
+    curl, a_bound 10: ModelConfig's defaults otherwise) at H × W."""
+    from pbml_mantle_convection_tpu_torch.models.registry import (
+        ModelConfig, build_model)
+    return build_model(ModelConfig(**{"H": H, "W": W, **fields}), seed=seed,
+                       device=device)
+
+
+def module_vs_f64(name, net, x):
+    """u, v of ``net`` on ``x`` against a float64 copy, rel to max |f64|;
+    raises above TOL_MODULE_F64."""
+    import copy
+    import torch
+    with torch.no_grad():
+        got = net(x)
+        ref = copy.deepcopy(net).double()(x.double())
+    rel = max(rel_err(a.double(), b)[1] for a, b in zip(got[:2], ref[:2]))
+    print(f"other models: {name} forward u, v vs float64 rel={rel:.3e} "
+          f"(tol {TOL_MODULE_F64})")
+    if not rel <= TOL_MODULE_F64:
+        raise AssertionError(f"{name}: forward vs float64 {rel:.3e}")
+    return rel
+
+
+def run_other_models(counters, bench_sps, device="cuda", steps=OTHER_STEPS,
+                     blurr_steps=500, bench_steps=100, H=128, W=506):
+    """Phase 11: the other models on the card at 128×506, float32, under
+    PyTorch's default flags:
+    (a) ``cli/rollout.py`` with the parser's default ``-s 1`` (the
+    symmetric flagship, ``-l 5 -f 16 -r 6 -k 5 -pad learned``, seed-0
+    weights) for ``steps`` steps: 0 + 0 + 0 + 1 launches per step (the
+    module path and the energy kernel; the warm-up step counted), T_vec
+    finite, steps/s from sum(TS_vec), the network's forward against
+    float64 (≤ TOL_MODULE_F64);
+    (b) the ``blurr`` flagship through the fused executor: 4 + 1 + 0 + 1
+    per step (the engine takes no fused epilogue: it would skip the
+    blur), steps/s over 500 steps beside ``bench_sps`` (phase 3's
+    flagship), 10 steps against its module path (TOL_ROLLOUT);
+    (c) ``cli/benchmark.py --what inference|rollout|train`` for FluidNet
+    (-l 5 -r 4), the multi-scale ensemble (-l 4 -r 4) and the ViT
+    (ModelConfig defaults), train at B = 8 (the ViT at B = 4, its
+    experiment's batch), their JSON lines echoed; each rollout 0 + 0 + 0
+    + 1 per step, inference and training no launch;
+    (d) the spectral NewFluidNet at ``newfluidnet_spectral``'s widths
+    (-l 3 -f 16 -r 2 -pad zeros): a forward against float64 (cuFFT);
+    (e) train-step parameter gradients against float64 at B = 2 (≤
+    TOL_TRAIN_GRAD), with the step with cuDNN off beside them, and the
+    parameter where each error sits: the symmetric flagship, FluidNet,
+    the ensemble, the spectral network and the ViT; no launch;
+    (f) one train step with dropout 0.1 (the flagship) from a generator:
+    the same seed gives the same loss and masks, another seed another.
+    The counts stay out of the kernels line. Leaves the flags as it found
+    them. (a) and (b) run on the CLI's grid, 128×506; ``H``, ``W`` size
+    (c)-(f), and with the step counts make a CPU rehearsal small (pass an
+    empty ``counters``: the CPU wrappers count nothing)."""
+    import copy
+    import tempfile
+
+    import torch
+    from pbml_mantle_convection_tpu_torch.cli import rollout
+    from pbml_mantle_convection_tpu_torch.constants import SimParams
+    from pbml_mantle_convection_tpu_torch.models.fast_path import (
+        FastNewFluidNet)
+    from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet
+    from pbml_mantle_convection_tpu_torch.sim.engine import SimEngine
+    from pbml_mantle_convection_tpu_torch.sim.grid import Grid
+    from pbml_mantle_convection_tpu_torch.sim.rollout import WARMUP_STEPS
+    from pbml_mantle_convection_tpu_torch.sim.stepper import (
+        TimeStepper, assemble_fluidnet_input)
+    from pbml_mantle_convection_tpu_torch.train.train_step import (
+        TrainStepConfig, make_train_step)
+    from pbml_mantle_convection_tpu_torch.train.trainer import adam_l2
+    from pbml_mantle_convection_tpu_torch.utils.checkpoint import load_pickle
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+
+    def pytorch_flags():
+        # cli/benchmark.py turns TF32 off for its runs
+        cudnn.allow_tf32, matmul.allow_tf32 = True, False
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    pytorch_flags()
+    t_phase = time.perf_counter()
+    grid = Grid()
+    params = SimParams(3.0, 1e8, 10.0)
+    try:
+        # (a) the rollout CLI at its default -s 1
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            argv = OTHER_ARGV + ["--max_steps", str(steps), "--device",
+                                 device, "--out_dir", d]
+            _zero(counters)
+            rollout.main(argv)
+            got = _launched(counters, {"advect_diffuse_step_fused":
+                                       steps + WARMUP_STEPS}, "(a) -s 1")
+            run = os.path.join(d, os.listdir(d)[0])
+            T_vec = np.asarray(load_pickle(os.path.join(
+                run, "T_vec_ML_STOKES.pkl")))
+            TS = np.asarray(load_pickle(os.path.join(
+                run, "TS_vec_ML_STOKES.pkl")))
+        if T_vec.shape != (steps,) or not np.isfinite(T_vec).all():
+            raise AssertionError(f"(a) T_vec {T_vec.shape}")
+        print(f"other models (a): cli/rollout.py -s 1 (default) -l 5 -f 16 "
+              f"-r 6, {steps} steps: {steps / TS.sum():.2f} steps/s from "
+              f"sum(TS_vec), launches {got} = 0+0+0+1 per step, mean T "
+              f"{T_vec[-1]:.6f}, {time.perf_counter() - t0:.1f} s")
+        args = rollout.build_parser().parse_args(argv)
+        net = rollout.build_surrogate(args, grid, torch.device(device))
+        if not (isinstance(net, NewFluidNet) and net.use_symm):
+            raise AssertionError(f"(a) the CLI built {type(net).__name__}")
+        st = TimeStepper(grid, params, net, device=device)
+        T0 = rollout.initial_temperature(grid, 3.0, 1e8, 10.0, "hot")
+        x, _ = assemble_fluidnet_input(
+            torch.as_tensor(T0, dtype=torch.float32, device=device)[None],
+            st._static, params)
+        module_vs_f64("(a) symmetric flagship", net, x)
+
+        # (b) the blurr flagship through the fused executor
+        t0 = time.perf_counter()
+        blurr = NewFluidNet(levels=5, c_i=7, c_h=16, c_o=1, act_fn="gelu",
+                            r_p="learned", loss_type="curl", repeats=6, f=5,
+                            p_pred=False, blurr=True, seed=0, device=device)
+        T0 = np.clip(1.0 - grid.yc + 0.05 * np.sin(6.28 * grid.xc),
+                     0.0, 1.0)[None]
+        engines = [SimEngine(TimeStepper(grid, params, fn, cn_max=0.99,
+                                         device=device))
+                   for fn in (FastNewFluidNet(blurr, 128, 506), blurr)]
+        if engines[0]._epi is not None:
+            raise AssertionError("(b) the fused epilogue would skip blurr")
+        eng = engines[0]
+        n = blurr_steps
+        state, _ = eng.multi_step(eng.init_state(T0), min(n, 20))  # warm-up
+        sync()
+        _zero(counters)
+        t1 = time.perf_counter()
+        state, _ = eng.multi_step(state, n)
+        sync()
+        sps = n / (time.perf_counter() - t1)
+        got = _launched(counters, {"layer_stack": 4 * n, "trunk": n,
+                                   "advect_diffuse_step_fused": n},
+                        "(b) blurr")
+        if not bool(torch.isfinite(state.T).all()):
+            raise AssertionError("(b) T not finite")
+        print(f"other models (b): blurr flagship through the fused "
+              f"executor: {sps:.2f} steps/s over {n} steps (phase 3's "
+              f"flagship {bench_sps} in this run, {sps / bench_sps:.3f} of "
+              f"it), launches {got} = 4+1+0+1 per step")
+        k = min(n, 10)
+        finals = [e.multi_step(e.init_state(T0), k)[0] for e in engines]
+        for f in ("T", "u", "v"):
+            err, rel = rel_err(getattr(finals[0], f), getattr(finals[1], f))
+            print(f"other models (b): {k} steps kernel vs module path: {f} "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                  f"{TOL_ROLLOUT[f]})")
+            if not rel <= TOL_ROLLOUT[f]:
+                raise AssertionError(f"(b) blurr kernel path: {f} {rel}")
+        print(f"  {time.perf_counter() - t0:.1f} s")
+        del engines, eng, blurr
+
+        # (c) the benchmark CLI
+        for net_name, (widths, batch) in OTHER_BENCH.items():
+            t0 = time.perf_counter()
+            argv = ["-net", net_name, *widths, "--H", str(H), "--W", str(W)]
+            _zero(counters)
+            echo_benchmark(["--what", "inference", "--iters", "50", *argv],
+                           device)
+            _launched(counters, {}, f"(c) {net_name} inference")
+            n = bench_steps
+            _zero(counters)
+            echo_benchmark(["--what", "rollout", "--steps", str(n), *argv],
+                           device)
+            _launched(counters, {"advect_diffuse_step_fused": n + min(n, 20)},
+                      f"(c) {net_name} rollout")
+            _zero(counters)
+            echo_train_benchmark(["--batch", str(batch), "--iters", "5",
+                                  *argv], device)
+            _launched(counters, {}, f"(c) {net_name} train")
+            pytorch_flags()
+            print(f"other models (c): {net_name}: launches per rollout step "
+                  f"0+0+0+1, none in inference or training, "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+        # (d) the spectral network on cuFFT
+        g = torch.Generator().manual_seed(21)
+        x = torch.rand(1, H, W, 7, generator=g).to(device)
+        module_vs_f64("(d) spectral -l 3 -f 16 -r 2 -pad zeros",
+                      other_model(OTHER_GRAD_NETS[3][1], device, H=H, W=W),
+                      x)
+
+        # (e) train-step gradients against float64, B = 2
+        x = torch.rand(2, H, W, 7, generator=g).to(device)
+        y = torch.randn(2, 2, H, W, generator=g).to(device)
+        _zero(counters)
+        for name, fields in OTHER_GRAD_NETS:
+            t0 = time.perf_counter()
+            out = {leg: train_gradients(
+                other_model(fields, device, H=H, W=W), x, y,
+                fields["network"], leg) for leg in ("step", "no_cudnn")}
+            rel = out["step"][0]
+            print(f"other models (e): train step {name} {H}x{W} B=2 at "
+                  f"default flags: parameter gradients vs float64 "
+                  f"rel={rel:.3e} (tol {TOL_TRAIN_GRAD}); cuDNN off "
+                  f"rel={out['no_cudnn'][0]:.3e}, "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for leg in ("step", "no_cudnn"):
+                print(f"  {leg}: {worst_parameter(out[leg][2], out[leg][1])}")
+            if not rel <= TOL_TRAIN_GRAD:
+                # above the bound: the network's backward arithmetic must
+                # hold it when float64 is fed float32's output gradient,
+                # and that gradient may differ only at a few pixels (a
+                # loss kink crossed by rounding, ROADMAP §3 fault 10)
+                last = ("nets_0.conv_3" if fields["network"]
+                        == "multiscalenewfluidnet" else "vit.Dense_1"
+                        if fields["network"] == "vit" else "conv_3")
+                k = locate_kink(other_model(fields, device, H=H, W=W), x, y,
+                                fields["network"], last)
+                print(f"  above the bound: {json.dumps(k)}")
+                if not (k["fed_vs_f32_rel"] <= TOL_TRAIN_GRAD
+                        and k["out_grad_rel_elsewhere"] <= KINK_ELSEWHERE
+                        and 0 < k["n_jumps"] <= KINK_PIXELS):
+                    raise AssertionError(f"(e) {name}: gradients {rel:.3e}")
+                print(f"  {name}: a loss kink crossed by rounding at "
+                      f"{k['n_jumps']} output pixels; the backward given "
+                      f"float32's output gradient reads "
+                      f"{k['fed_vs_f32_rel']:.3e} (tol {TOL_TRAIN_GRAD})")
+            del out
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        _launched(counters, {}, "(e) train steps")
+
+        # (f) dropout from the step's generator
+        net = other_model(dict(network="newfluidnet", levels=5, repeats=6,
+                               drop_rate=0.1), device, H=H, W=W)
+        cfg = TrainStepConfig(net="newfluidnet", loss_scale=True,
+                              loss_derivative=True, loss_type="curl",
+                              drop_rate=0.1)
+        losses = []
+        for seed in (5, 5, 6):
+            m = copy.deepcopy(net)
+            gen = torch.Generator(device=device).manual_seed(seed)
+            br = make_train_step(m, adam_l2(m.parameters(), 1e-3), cfg,
+                                 generator=gen)({"x": x, "y": y})
+            losses.append(br.stack().cpu())
+        same = bool(torch.equal(losses[0], losses[1]))
+        print(f"other models (f): a dropout 0.1 train step of the flagship "
+              f"from a generator on the device: losses {losses[0][0]:.6e} (seed 5), "
+              f"{losses[1][0]:.6e} (seed 5 again, equal: {same}), "
+              f"{losses[2][0]:.6e} (seed 6)")
+        if not same or torch.equal(losses[0], losses[2]):
+            raise AssertionError(f"(f) dropout losses {losses}")
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    print(f"other models: {time.perf_counter() - t_phase:.1f} s (launch "
+          f"counts kept out of the kernels line)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2413,6 +2805,7 @@ def main() -> int:
     run_unet(counters)
     print(f"unet: {time.perf_counter() - t0:.1f} s")
     run_drivers(counters, bench_sps[128, 506])
+    run_other_models(counters, bench_sps[128, 506])
 
     floor = launch_floor(1, ENERGY_BLOCK)
     print(f"launch floor: an empty kernel of one block of {ENERGY_BLOCK} "

@@ -5,12 +5,17 @@ and its metric names; prints one JSON line. ``--what inference`` times
 ``--iters`` forward passes at batch 1 after one warm-up pass (the
 reference's timing loop, load_fluidnet.ipynb cell 7): NewFluidNet through
 the fused executor with learned or zero padding (``-pad``; ``--raw-module``:
-the module), the U-Net, the ConvAE and the Transolvers through their
-forward. ``--what rollout`` times ``--steps`` coupled ML_STOKES steps of a
+the module), every other network of the registry through its forward.
+``--what rollout`` times ``--steps`` coupled ML_STOKES steps of a
 NewFluidNet after a short warm-up, ``--batch`` simulations per step (the
 fused executor runs them one after another, the energy step runs once for
-the batch), or of the U-Net (``-net unet|iunet``: the network advances T
-itself, under the metric ``rollout_steps_per_s_unet_{H}x{W}``). ``--what train`` times ``--iters`` train
+the batch), of a FluidNet, a multi-scale ensemble or a ViT (the module,
+then the energy step), or of the U-Net (``-net unet|iunet``: the network
+advances T itself); a network other than NewFluidNet under its own metric
+name (``rollout_steps_per_s_{net}_{H}x{W}``). The networks with no
+coupled rollout (``sim/stepper.py::NO_ROLLOUT``: a HalfNewFluidNet, the
+Transolvers, the ConvAE) raise with the reason, which JAX's CLI shares.
+``--what train`` times ``--iters`` train
 steps (train/train_step.py: curl loss with loss scaling and the
 derivative term, Adam 1e-3) at ``--batch`` (default 8) after one warm-up
 step, and prints the peak device memory beside them; ``--profile`` adds
@@ -43,7 +48,7 @@ from ..models.fast_path import FastNewFluidNet, unsupported_reason
 from ..models.registry import ModelConfig, build_model
 from ..sim.engine import SimEngine
 from ..sim.grid import Grid
-from ..sim.stepper import TimeStepper
+from ..sim.stepper import NO_ROLLOUT, TimeStepper
 from ..models.layers import float32_convs
 from ..train.train_step import (TrainStepConfig, make_loss_fn,
                                 make_train_step)
@@ -97,19 +102,11 @@ def build_parser():
     return p
 
 
-# networks with a coupled rollout: the fused executor's family and the
-# U-Net, which advances T itself
-ROLLOUT_NETS = ("newfluidnet", "unet", "iunet")
-
-
-def _unported(args) -> str | None:
-    if args.sharded:
-        return "--sharded (ROADMAP queue 1 item 7)"
-    if args.what == "rollout" and args.network not in ROLLOUT_NETS + (
-            "convae",):
-        return (f"rollout of {args.network!r} (the port's stepper runs "
-                f"NewFluidNet and the U-Net; ROADMAP queue 1 item 6)")
-    return None
+# networks with a coupled rollout: the FluidNet family (NewFluidNet through
+# the fused executor), the multi-scale ensemble, the ViT, and the U-Net,
+# which advances T itself
+ROLLOUT_NETS = ("newfluidnet", "fluidnet", "multiscalenewfluidnet", "vit",
+                "unet", "iunet")
 
 
 def initial_temperature(grid: Grid, batch: int = 1) -> np.ndarray:
@@ -254,13 +251,11 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.batch is None:
         args.batch = 8 if args.what == "train" else 1
-    reason = _unported(args)
-    if reason is not None:
-        raise NotImplementedError(f"not ported yet: {reason}")
-    if args.what == "rollout" and args.network == "convae":
-        raise ValueError("the ConvAE has no coupled rollout: it predicts "
-                         "no temperature, and the stepper has no branch "
-                         "for it (nor has the JAX stepper)")
+    if args.sharded:
+        raise NotImplementedError("not ported yet: --sharded (ROADMAP "
+                                  "queue 1 item 7)")
+    if args.what == "rollout" and args.network in NO_ROLLOUT:
+        raise ValueError(NO_ROLLOUT[args.network])
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("benchmark: no CUDA device (pass --device cpu to "

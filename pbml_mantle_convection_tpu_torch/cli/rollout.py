@@ -23,9 +23,14 @@ and the reference pickle set (snapshots/T_vec/t_vec/TS_vec)::
         -pad learned -init perfect --max_steps 2000
 
 It runs on the card; only ``--device cpu`` runs it elsewhere, and with no
-card and no such flag it fails. Networks and options the port has not
-ported raise ``NotImplementedError`` naming their ROADMAP item (the
-defaults ``-s 1 -l 6 -r 4`` are the JAX parser's: ``-s 1`` raises).
+card and no such flag it fails. The parser's defaults are the JAX
+parser's (``-s 1 -l 6 -r 4``; ``-l 6`` pools the 128×506 grid below the
+learned-padding slab, which JAX refuses too, so the flagship runs with
+``-l 5 -r 6``): ``-s 1`` runs the symmetric network on the module path,
+as JAX's CLI does. The networks with no coupled rollout
+(``sim/stepper.py::NO_ROLLOUT``: a HalfNewFluidNet, the Transolvers, the
+ConvAE) raise with the reason, which JAX's CLI shares, before anything is
+written.
 """
 
 from __future__ import annotations
@@ -81,15 +86,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _unported(args) -> str | None:
-    if args.mode == "GAIA":
-        return None                      # no surrogate is built
-    if "transolver" in args.network or args.network == "vit":
-        return (f"a rollout of {args.network!r} (the port's stepper runs "
-                f"NewFluidNet and the U-Net; ROADMAP queue 1 item 6)")
-    return None
-
-
 def initial_temperature(grid, raq: float, fkt: float, fkp: float,
                         initialization: str) -> np.ndarray:
     """(H, W) float64 initial field as the JAX CLI builds it: the
@@ -120,7 +116,8 @@ def build_surrogate(args, grid, device):
     weights from ``--nn_dir`` (the port Trainer's
     ``{epoch}_fluidnet_uvp.ckpt``) or seed 0, run through the fused
     executor where the JAX CLI runs its own (``--fast 1``, newfluidnet,
-    learned or zero padding, ``use_symm`` off)."""
+    learned or zero padding, ``use_symm`` off); else the module (JAX's
+    CLI builds the ViT at the registry's 128×506 default, the grid)."""
     import torch
 
     from ..models.fast_path import FastNewFluidNet, unsupported_reason
@@ -157,15 +154,13 @@ def build_surrogate(args, grid, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    reason = _unported(args)
-    if reason is not None:
-        raise NotImplementedError(f"not ported yet: {reason}")
-    if args.mode != "GAIA" and args.network == "convae":
-        raise ValueError("the ConvAE has no coupled rollout: it predicts "
-                         "no temperature (nor has the JAX stepper a branch "
-                         "for it)")
 
     import torch
+
+    from ..sim.stepper import NO_ROLLOUT
+    if args.mode != "GAIA" and args.network in NO_ROLLOUT:
+        # GAIA builds no surrogate
+        raise ValueError(NO_ROLLOUT[args.network])
 
     from ..constants import SimParams
     from ..sim.engine import SimEngine

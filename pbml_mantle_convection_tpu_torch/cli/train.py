@@ -18,8 +18,10 @@ card and no such flag it fails. Example (the README's flagship)::
         -l 5 -f 16 -r 6 -k 5 -p learned -lt curl -b 8 -l_sc 1 -l_de 1 \\
         --synthetic
 
-Networks and options the port does not build yet raise
-``NotImplementedError`` naming their ROADMAP item (models/registry.py).
+Every network and option of the JAX registry trains (models/registry.py;
+``-d_r`` draws the dropout masks from the Trainer's generator, seeded
+from ``seed + 1``); a HalfNewFluidNet, whose raw head is no (u, v, p),
+raises as JAX's train step fails.
 """
 
 from __future__ import annotations

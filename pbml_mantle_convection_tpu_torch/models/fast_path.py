@@ -16,8 +16,8 @@ every stage is a hand-written kernel; on CPU tensors each stage runs its
 plain PyTorch version.
 
 Supported: the flagship form — k = 5, pooling factor 2, GELU, curl head
-with c_o = 1 and no pressure output — with either padding the JAX
-executor takes: learned padding (every layer a learned-boundary conv, the
+with c_o = 1 and no pressure output, with or without ``blurr`` — with
+either padding the JAX executor takes: learned padding (every layer a learned-boundary conv, the
 kernels' learned instance) or zero padding (``r_p="zeros"``: every layer
 a zero-padded SAME conv with its own bias, the kernels' zero instance;
 the 3×3 merge convs run as 5×5 kernels with a zero ring, the same
@@ -42,7 +42,18 @@ from .layers import BoundaryLearnedConvolution2D, fluid_layer_groups
 def unsupported_reason(m: NewFluidNet) -> Optional[str]:
     """Why the fused executor cannot run ``m``, or None. It runs learned
     padding (the layer kernels' learned-boundary instance) and zero
-    padding (their zero-padded instance), each with k = 5."""
+    padding (their zero-padded instance), each with k = 5, and ``blurr``
+    (the module's head blurs the stream function; the engine then takes
+    no fused epilogue). Symmetric, dilated or spectral convs and dropout
+    stay off it, as JAX's executor refuses them (fast_path.py:182-187)."""
+    if not isinstance(m, NewFluidNet):
+        return f"{type(m).__name__} (the executor runs NewFluidNet)"
+    if m.use_symm or m.dilation != 1:
+        return (f"use_symm={m.use_symm}, dilation={m.dilation} (needs "
+                f"plain convs, dilation 1)")
+    if m.spectral_conv or m.drop_rate:
+        return (f"spectral_conv={m.spectral_conv}, drop_rate={m.drop_rate} "
+                f"(no spectral convs or dropout)")
     if m.r_p not in ("learned", "zeros") or m.f != 5:
         return (f"r_p={m.r_p!r}, f={m.f} (needs learned or zero padding, "
                 f"k=5)")

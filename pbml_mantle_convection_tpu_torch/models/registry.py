@@ -1,11 +1,13 @@
 """Model registry and channel-count derivation.
 
 Counterpart of the JAX package's ``models/registry.py``: one typed config
-(the same fields and the same ``channels`` rule) and ``build_model``. The
-port builds the families it has: ``newfluidnet``, ``unet`` and ``iunet``
-(the same U-Net), ``convae``, ``transolver_structured`` and
-``transolver``. Any other network raises ``NotImplementedError`` naming
-its ROADMAP item; none silently turns into another model.
+(the same fields and the same ``channels`` rule) and ``build_model``,
+which builds every network of the JAX registry: ``newfluidnet``,
+``fluidnet`` and ``ifluidnet`` (the same FluidNet with c_i = 9),
+``halfnewfluidnet``, ``multiscalenewfluidnet``, ``unet`` and ``iunet``
+(the same U-Net), ``convae``, ``transolver_structured``, ``transolver``
+and ``vit``, with every option JAX's modules take. An unknown network
+raises ``ValueError``; none silently turns into another model.
 """
 
 from __future__ import annotations
@@ -15,18 +17,11 @@ from typing import Any, Sequence, Tuple
 
 import torch
 
-from .fluidnet import NewFluidNet
+from .fluidnet import (FluidNet, HalfNewFluidNet, MultiScaleNewFluidNet,
+                       NewFluidNet)
 from .transolver import TransolverIrregular, TransolverStructured2D
 from .unet import ConvAE, Unet
-
-# networks of the JAX registry that the port does not build yet
-_UNPORTED = {
-    "fluidnet": "ROADMAP queue 1 item 6",
-    "ifluidnet": "ROADMAP queue 1 item 6",
-    "halfnewfluidnet": "ROADMAP queue 1 item 6",
-    "multiscalenewfluidnet": "ROADMAP queue 1 item 6",
-    "vit": "ROADMAP queue 1 item 6",
-}
+from .vit import ViTField
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,39 +100,32 @@ def build_model(cfg: ModelConfig, seed: int = 0, device=None):
     ``device`` (default: the card)."""
     net = cfg.network
     c_i, c_o = cfg.channels
-    if net in _UNPORTED:
-        raise NotImplementedError(f"network {net!r} is not ported yet "
-                                  f"({_UNPORTED[net]})")
     dtype = cfg.dtype or torch.float32
     common = dict(seed=seed, device=device, dtype=dtype)
+    fluid = dict(levels=cfg.levels, c_i=c_i, c_h=cfg.c_h, c_o=c_o,
+                 act_fn=cfg.act_fn, r_p=cfg.r_p, loss_type=cfg.loss_type,
+                 use_symm=cfg.use_symm, dilation=cfg.dilation,
+                 a_bound=cfg.a_bound, repeats=cfg.repeats, f=cfg.kernel,
+                 p_pred=cfg.p_pred, spectral_conv=cfg.spectral_conv,
+                 blurr=cfg.blurr, **common)
     if net == "newfluidnet":
-        options = {"use_symm": False, "dilation": 1, "spectral_conv": False,
-                   "blurr": False, "drop_rate": 0.0}
-        unported = [k for k, v in options.items() if getattr(cfg, k) != v]
-        if unported:
-            raise NotImplementedError(
-                f"newfluidnet options {unported} are not ported yet "
-                f"(ROADMAP queue 1 item 6)")
-        return NewFluidNet(levels=cfg.levels, c_i=c_i, c_h=cfg.c_h, c_o=c_o,
-                           act_fn=cfg.act_fn, r_p=cfg.r_p,
-                           loss_type=cfg.loss_type, a_bound=cfg.a_bound,
-                           repeats=cfg.repeats, f=cfg.kernel,
-                           p_pred=cfg.p_pred, factor=cfg.factor, **common)
+        return NewFluidNet(**fluid, drop_rate=cfg.drop_rate,
+                           factor=cfg.factor)
+    if net in ("fluidnet", "ifluidnet"):
+        # ifluidnet is the same FluidNet with c_i = 9; the velocity
+        # feedback loop lives in TimeStepper.stokes_iterative
+        return FluidNet(**fluid, drop_rate=cfg.drop_rate, factor=cfg.factor)
+    if net == "multiscalenewfluidnet":
+        scales = tuple(cfg.multi_scales) or (1e-5, 1e-3, 1e-1, 1e1)
+        return MultiScaleNewFluidNet(**fluid, drop_rate=cfg.drop_rate,
+                                     factor=cfg.factor, scales=scales)
+    if net == "halfnewfluidnet":
+        return HalfNewFluidNet(**fluid, drop_rate=cfg.drop_rate,
+                               factor=cfg.factor)
     if net in ("unet", "iunet"):
-        return Unet(levels=cfg.levels, c_i=c_i, c_h=cfg.c_h, c_o=c_o,
-                    act_fn=cfg.act_fn, r_p=cfg.r_p, loss_type=cfg.loss_type,
-                    use_symm=cfg.use_symm, dilation=cfg.dilation,
-                    a_bound=cfg.a_bound, repeats=cfg.repeats, f=cfg.kernel,
-                    p_pred=cfg.p_pred, spectral_conv=cfg.spectral_conv,
-                    blurr=cfg.blurr, drop_rate=cfg.drop_rate, **common)
+        return Unet(**fluid, drop_rate=cfg.drop_rate)
     if net == "convae":
-        return ConvAE(levels=cfg.levels, c_i=c_i, c_h=cfg.c_h, c_o=c_o,
-                      act_fn=cfg.act_fn, r_p=cfg.r_p,
-                      loss_type=cfg.loss_type, use_symm=cfg.use_symm,
-                      dilation=cfg.dilation, a_bound=cfg.a_bound,
-                      repeats=cfg.repeats, f=cfg.kernel, p_pred=cfg.p_pred,
-                      spectral_conv=cfg.spectral_conv, blurr=cfg.blurr,
-                      **common)
+        return ConvAE(**fluid)
     if net == "transolver":
         return TransolverIrregular(
             space_dim=2, fun_dim=5, n_layers=cfg.n_layers,
@@ -151,4 +139,14 @@ def build_model(cfg: ModelConfig, seed: int = 0, device=None):
             n_head=cfg.n_head, mlp_ratio=cfg.mlp_ratio,
             out_dim=max(1, c_o), slice_num=cfg.slice_num,
             a_bound=cfg.a_bound, p_pred=cfg.p_pred, kernel=3, **common)
+    if net == "vit":
+        # the patch must divide the grid: 8, else 2 (JAX's rule; 128×506
+        # gets 8×2 patches, 4,048 tokens)
+        ph = 8 if cfg.H % 8 == 0 else 2
+        pw = 8 if cfg.W % 8 == 0 else 2
+        return ViTField(image_size=(cfg.H, cfg.W), patch_size=(ph, pw),
+                        c_o=3 if cfg.p_pred else 2, dim=cfg.n_hidden,
+                        depth=cfg.n_layers, heads=cfg.n_head,
+                        mlp_dim=cfg.n_hidden * 2, channels=c_i,
+                        p_pred=cfg.p_pred, **common)
     raise ValueError(f"unknown network {net!r}")

@@ -21,11 +21,16 @@ stack, the mirrored bicubic decoder (to the recorded encoder sizes), an
 output conv, and under ``curl`` a VALID curl head whose u, v are
 concatenated with the interior of the other channels.
 
-Not ported (ROADMAP queue 1 item 6): ``spectral_conv``, ``use_symm``,
-``dilation`` != 1 and ``drop_rate`` > 0 raise ``NotImplementedError``.
+Both take the layer options as JAX's do: ``spectral_conv`` (every
+FluidLayer a SpectralFluidLayer), ``use_symm`` (symmetric convs in the
+FluidLayers and the learned merges), ``dilation`` (the FluidLayers and
+the U-Net's plain ``conv_m3``) and, for the U-Net, ``drop_rate``
+(dropout after each FluidLayer when ``forward`` is given a generator).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,16 +41,7 @@ from ..ops.curl import curl_head_padded, gaussian_blur_5x9
 from ..ops.resize import avg_pool_nchw, resize_bicubic_nchw
 from ..ops.stencils import dx_center, dy_center
 from .layers import (_PAD_MODES, BoundaryLearnedConvolution2D, Conv2dTorch,
-                     FluidLayer, GroupNormTorch, get_activation)
-
-
-def _unported(spectral_conv, use_symm, dilation, drop_rate=0.0):
-    options = {"spectral_conv": spectral_conv, "use_symm": use_symm,
-               "dilation": dilation != 1, "drop_rate": drop_rate > 0.0}
-    bad = [k for k, v in options.items() if v]
-    if bad:
-        raise NotImplementedError(f"options {bad} are not ported yet "
-                                  f"(ROADMAP queue 1 item 6)")
+                     GroupNormTorch, fluid_layer, get_activation)
 
 
 class Unet(nn.Module):
@@ -61,7 +57,6 @@ class Unet(nn.Module):
                  drop_rate: float = 0.0, seed: int = 0, device=None,
                  dtype=torch.float32):
         super().__init__()
-        _unported(spectral_conv, use_symm, dilation, drop_rate)
         if levels < 2:
             raise ValueError("Unet requires levels >= 2")
         self.levels, self.c_i, self.c_h, self.c_o = levels, c_i, c_h, c_o
@@ -73,7 +68,9 @@ class Unet(nn.Module):
         rng = np.random.default_rng(seed)
 
         def layer(c_in, c_out, bc_x=1):
-            return FluidLayer(c_in, c_out, rng, act_fn, r_p, f, bc_x=bc_x)
+            return fluid_layer(c_in, c_out, rng, act_fn, r_p, f, use_symm,
+                               dilation, drop_rate, spectral_conv,
+                               bc_x=bc_x)
 
         # level 0; with learned padding the first layer grows W by 6
         # (bc_x = 4, pytorch_networks_convae.py:1994-1995)
@@ -100,13 +97,16 @@ class Unet(nn.Module):
             ch //= 2
         ci += feat_ch[0]
 
-        def conv(c_in, c_out):
+        def conv(c_in, c_out, dilation=1):
             if self.learned:
-                return BoundaryLearnedConvolution2D(c_in, c_out, f, rng)
+                return BoundaryLearnedConvolution2D(c_in, c_out, f, rng,
+                                                    use_symm=use_symm)
             return Conv2dTorch(c_in, c_out, f, rng, padding="SAME",
-                               pad_mode=r_p)
+                               pad_mode=r_p, dilation=dilation)
 
-        self.conv_m3 = conv(ci, c_h)
+        # dilation reaches the plain conv_m3, not conv_m2 and conv_m1, as
+        # in JAX (unet.py:112-139)
+        self.conv_m3 = conv(ci, c_h, dilation)
         self.gn_0 = GroupNormTorch(max(1, c_h // 4), c_h)
         self.conv_m2 = conv(c_h, c_h)
         self.conv_m1 = conv(c_h, c_o)
@@ -122,27 +122,27 @@ class Unet(nn.Module):
         self.conv_m3.wgrad_off_cudnn = True
         self.to(device=device or "cuda", dtype=dtype)
 
-    def forward(self, inputs):
+    def forward(self, inputs, generator: Optional[torch.Generator] = None):
         x = inputs.permute(0, 3, 1, 2)
         if not self.learned:
             # pad (3, 3, 0, 0) in x (pytorch_networks_convae.py:1990-1991)
             x = F.pad(x, (3, 3, 0, 0), mode=self.pad_mode)
         for r in range(self.repeats):
-            x = getattr(self, f"conv_{r}")(x)
+            x = getattr(self, f"conv_{r}")(x, generator)
         feats = [x]
         sizes = [tuple(x.shape[-2:])]
         for l in range(1, self.levels):
             x = avg_pool_nchw(x, 2)
             sizes.append(tuple(x.shape[-2:]))
             for r in range(self.repeats):
-                x = getattr(self, f"convs_{l - 1}_{r}")(x)
+                x = getattr(self, f"convs_{l - 1}_{r}")(x, generator)
             feats.append(x)
         xu = feats[-1]
         for i, l in enumerate(range(self.levels - 2, 0, -1)):
             xu = torch.cat((feats[l], resize_bicubic_nchw(xu, sizes[l])),
                            dim=1)
             for r in range(self.repeats):
-                xu = getattr(self, f"upconvs_{i}_{r}")(xu)
+                xu = getattr(self, f"upconvs_{i}_{r}")(xu, generator)
         y = torch.cat((resize_bicubic_nchw(xu, sizes[0]), feats[0]), dim=1)
         y = self.act(self.gn_0(self.conv_m3(y)))
         y = self.act(self.conv_m2(y))
@@ -177,7 +177,6 @@ class ConvAE(nn.Module):
                  spectral_conv: bool = False, blurr: bool = False,
                  seed: int = 0, device=None, dtype=torch.float32):
         super().__init__()
-        _unported(spectral_conv, use_symm, dilation)
         self.levels, self.c_i, self.c_h, self.c_o = levels, c_i, c_h, c_o
         self.loss_type, self.a_bound = loss_type, a_bound
         self.repeats, self.p_pred = repeats, p_pred
@@ -185,7 +184,8 @@ class ConvAE(nn.Module):
         rng = np.random.default_rng(seed)
 
         def layer(c_in, c_out):
-            return FluidLayer(c_in, c_out, rng, act_fn, r_p, f)
+            return fluid_layer(c_in, c_out, rng, act_fn, r_p, f, use_symm,
+                               dilation, spectral=spectral_conv)
 
         self.stem = layer(c_i, c_h)
         ci = ch = c_h

@@ -1,12 +1,15 @@
 """Curl heads: divergence-free velocities from a stream function.
 
-Counterparts of ``curl_head_padded``, ``curl_head_valid`` and
-``gaussian_blur_5x9`` in the JAX package's ``ops/curl.py``: u = ∂a/∂y,
-v = -∂a/∂x as VALID central differences. The padded head (NewFluidNet,
-reference: pytorch_networks_convae.py:1369-1386) replicate-pads them back
-to (H, W) with antisymmetric free-slip sidewalls and zeroed corners; the
-valid head (Transolver) returns them as they are. The U-Net's ``blurr``
-option smooths the stream function first (:func:`gaussian_blur_5x9`).
+Counterparts of ``curl_head_padded``, ``curl_head_cropped``,
+``curl_head_valid``, ``gaussian_blur_5x9`` and ``blur3x3`` in the JAX
+package's ``ops/curl.py``: u = ∂a/∂y, v = -∂a/∂x as VALID central
+differences. The padded head (NewFluidNet, reference:
+pytorch_networks_convae.py:1369-1386) replicate-pads them back to (H, W)
+with antisymmetric free-slip sidewalls and zeroed corners; the cropped
+head (FluidNet, :1694-1697) takes an (H+2, W+2) stream function to (H, W);
+the valid head (Transolver) returns them as they are. The ``blurr``
+option smooths the stream function first: the U-Net with
+:func:`gaussian_blur_5x9`, the FluidNet family with :func:`blur3x3`.
 """
 
 from __future__ import annotations
@@ -40,6 +43,12 @@ def curl_head_padded(a):
     return u, v
 
 
+def curl_head_cropped(a):
+    """FluidNet curl head: (…, H+2, W+2) stream function → (…, H, W) u, v
+    (reference: pytorch_networks_convae.py:1694-1697)."""
+    return dy_center(a)[..., :, 1:-1], -dx_center(a)[..., 1:-1, :]
+
+
 def curl_head_valid(a):
     """Transolver curl head: (…, H, W) stream function → (…, H-2, W-2)
     u, v (reference: Transolver_Structured_Mesh_2D-checkpoint.py:201-204)."""
@@ -68,3 +77,17 @@ def gaussian_blur_5x9(a, sigma: float = 2.55):
     for j, k in enumerate(kern(9)):
         out = out + k * p2[..., :, j:j + W]
     return out
+
+
+def blur3x3(a):
+    """Replicate pad, then the 3×3 box mean of a ``[..., H, W]`` stream
+    function (reference: NewFluidNet's ``blurr``,
+    pytorch_networks_convae.py:1163-1172, 1359-1361); the nine taps summed
+    row by row, then divided by 9."""
+    H, W = a.shape[-2:]
+    p = replicate_pad(a, (1, 1, 1, 1))
+    out = torch.zeros_like(a)
+    for dy in range(3):
+        for dx in range(3):
+            out = out + p[..., dy:dy + H, dx:dx + W]
+    return out / 9.0

@@ -21,10 +21,12 @@ dissipation number ``Di`` > 0 (prepare_gaia_ini.py:61-62).
 Per step: the Stokes solve, the energy sources, the energy step
 (``ops/advect_kernel.py``: one CUDA call on the card), core cooling, BC
 stamping and the clip to [0, 2]. In ML/ML_STOKES with Di = 0 and no core
-cooling, and with the fused executor (``models/fast_path.py``) as the
-surrogate, the step is instead 4 ``layer_stack`` (stem, the grouped
-branches, merges 2 and 3) + 1 ``trunk`` + 1 ``curl_advect_epilogue``
-kernel calls plus a few elementwise ops. Nothing
+cooling, and with the fused executor (``models/fast_path.py``) of a
+network without ``blurr`` as the surrogate, the step is instead 4
+``layer_stack`` (stem, the grouped branches, merges 2 and 3) + 1
+``trunk`` + 1 ``curl_advect_epilogue`` kernel calls plus a few
+elementwise ops; with ``blurr`` the executor's 4 + 1, the blurred curl
+head and the energy step (4 + 1 + 0 + 1). Nothing
 in a step of the surrogate modes reads a value back to the host, so
 :meth:`SimEngine.multi_step` queues N steps without a round trip; the PT
 solve reads its residual once per ``check_every`` iterations, and the
@@ -119,12 +121,14 @@ class SimEngine:
         # GAIA's FK viscosity is unclipped; depth 1 - yc on the device
         self._depth = 1.0 - stepper._static.yc_feat * COORD_SCALE
         # the fused epilogue covers ML/ML_STOKES with Di = 0 and no core
-        # cooling, when the surrogate is the fused executor (stokes_psi
-        # also gates B = 1 per step)
+        # cooling, when the surrogate is the fused executor without blurr
+        # (the epilogue takes the raw stream function: it would skip the
+        # blur; JAX's engine gates it off the same way, engine.py:187);
+        # stokes_psi also gates B = 1 per step
         self._epi = None
         fn = stepper.apply_fn
         if (mode in ("ML", "ML_STOKES") and Di == 0.0 and not core_cool
-                and hasattr(fn, "apply_psi_from_T")):
+                and hasattr(fn, "apply_psi_from_T") and not fn.m.blurr):
             self._epi = epilogue_consts(stepper._metrics, fn.m.a_bound,
                                         stepper.cn_max)
 

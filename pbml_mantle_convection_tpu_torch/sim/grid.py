@@ -53,6 +53,20 @@ class Grid:
                                                     (self.H, self.W)))
 
     @cached_property
+    def sdf(self) -> np.ndarray:
+        """(H, W) boundary indicator, float64: 1 on the outermost ring, 0
+        inside (advect_wi_gaia.py:566-570)."""
+        m = np.zeros((self.H, self.W))
+        m[0, :] = m[-1, :] = m[:, 0] = m[:, -1] = 1.0
+        return m
+
+    @cached_property
+    def sdf2(self) -> np.ndarray:
+        """(H, W) interior indicator, float64: 0 on the ring, 1 inside
+        (advect_wi_gaia.py:571-575)."""
+        return 1.0 - self.sdf
+
+    @cached_property
     def pos(self) -> np.ndarray:
         """(H*W, 2) flattened (x, y) positions, the layout of GAIA's
         ``state["pos"]`` (advect_wi_gaia.py:560-564)."""

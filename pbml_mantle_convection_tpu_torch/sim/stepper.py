@@ -10,7 +10,9 @@ on the card, its plain version on the CPU. A stepper without a surrogate
 (``apply_fn=None``) serves the engine's ``mode="GAIA"``. With
 ``net="unet"`` (or ``"iunet"``) the network predicts the new temperature
 itself (:meth:`TimeStepper.step_unet`, dt from :meth:`TimeStepper.
-unet_dt`): no energy step runs.
+unet_dt`): no energy step runs. The legacy iterative ``ifluidnet`` branch
+(:meth:`TimeStepper.stokes_iterative`, :meth:`TimeStepper.step_iterative`)
+feeds the velocity iterate back as input channels.
 """
 
 from __future__ import annotations
@@ -20,11 +22,26 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from ..constants import COORD_SCALE, SimParams, velocity_scaler, visc_feature
+from ..models.fluidnet import HALF_HEAD
 from ..ops.advect_kernel import advect_diffuse_step_fused
 from ..ops.stencils import stamp_temperature_bc
 from ..physics.advection import grid_metrics
 from ..physics.viscosity import fk_viscosity, fk_viscosity_clipped
 from .grid import Grid
+
+
+_TRANSOLVER = ("a Transolver reads (B, N, C) points and the stepper hands "
+               "its surrogate an NHWC image: JAX's stepper fails in the "
+               "Transolver's own input concat (a TypeError)")
+# networks with no coupled rollout, in the port as in JAX, and why
+NO_ROLLOUT = {
+    "halfnewfluidnet": HALF_HEAD,
+    "transolver_structured": _TRANSOLVER,
+    "transolver": _TRANSOLVER,
+    "convae": ("the ConvAE has no coupled rollout: it predicts no "
+               "temperature, and the stepper has no branch for it (nor has "
+               "the JAX stepper)"),
+}
 
 
 class StaticFields(NamedTuple):
@@ -93,6 +110,47 @@ def assemble_unet_input(T, u_prev, v_prev, dt, static: StaticFields,
     if p_prev is not None:
         chans.append(p_prev)
     return torch.stack(chans, dim=-1), V
+
+
+def assemble_ifluidnet_input(T, u, v, grid: Grid, static: StaticFields,
+                             params: SimParams):
+    """9-channel NHWC input (sdf, sdf2, log10(V)/8, raq_nd, fkt_nd,
+    fkp_nd, T, u, v) of the legacy iterative-fluidnet branch: the boundary
+    rings replace the coordinate channels and the running velocity
+    iterate is fed back (reference: pycold-checkpoint.py:326-341). T, u,
+    v: (B, H, W). Returns ((B, H, W, 9), the clipped viscosity)."""
+    V = viscosity(T, static, params)
+    b = T.shape[0]
+
+    def bcast(p):
+        return p.expand((b,) + tuple(p.shape))
+
+    def ring(m):
+        return bcast(torch.as_tensor(m, dtype=T.dtype, device=T.device))
+
+    x = torch.stack(
+        [ring(grid.sdf), ring(grid.sdf2), visc_feature(V),
+         bcast(static.raq_nd), bcast(static.fkt_nd), bcast(static.fkp_nd),
+         T, u, v], dim=-1)
+    return x, V
+
+
+def _zero_corners(f):
+    """A copy of a (B, H, W) field with its four corner cells zeroed
+    (pycold-checkpoint.py:384-399)."""
+    f = f.clone()
+    for r in (0, -1):
+        for c in (0, -1):
+            f[..., r, c] = 0.0
+    return f
+
+
+def _edge_pad_w(x, n: int):
+    """Replicate-pad the W axis (dim 2) of an NHWC tensor by ``n`` each
+    side."""
+    w = x.shape[2]
+    return torch.cat([x[:, :, :1].expand(-1, -1, n, -1), x,
+                      x[:, :, w - 1:].expand(-1, -1, n, -1)], dim=2)
 
 
 class TimeStepper:
@@ -167,9 +225,10 @@ class TimeStepper:
     @torch.no_grad()
     def stokes_psi(self, T):
         """(psi, V, scaler) for the fused curl + advection epilogue when
-        ``apply_fn`` is the fused executor and B = 1; None otherwise."""
+        ``apply_fn`` is the fused executor of a network without ``blurr``
+        and B = 1; None otherwise."""
         fn = self._bound_fast()
-        if fn is None or T.shape[0] != 1:
+        if fn is None or T.shape[0] != 1 or fn.m.blurr:
             return None
         V = viscosity(T, self._static, self.params)
         return fn.apply_psi_from_T(T, V), V, self.scaler
@@ -179,6 +238,42 @@ class TimeStepper:
         """Stokes surrogate then the explicit energy update with BC
         stamping; returns (T_new, dt, u, v, p, V)."""
         u, v, p, V = self.stokes(T)
+        T_new, dt = advect_diffuse_step_fused(
+            u, v, T, self._raq, self._metrics, dt=dt, cn_max=self.cn_max,
+            core_cool=self.core_cool)
+        return (stamp_temperature_bc(T_new, core_cool=self.core_cool), dt,
+                u, v, p, V)
+
+    @torch.no_grad()
+    def stokes_iterative(self, T, n_iter: int = 1):
+        """The legacy ``ifluidnet`` Stokes solve (pycold-checkpoint.py:
+        322-343): the surrogate takes the previous velocity iterate as
+        input channels 8-9 (zeros on the first pass) and is applied
+        ``n_iter`` times, its input replicate-padded by 3 in W and its
+        outputs cropped back; then the velocities are unscaled and the
+        corners of every output zeroed (:363-399). Returns (u, v, p, V),
+        u and v in physical units."""
+        u, v = torch.zeros_like(T), torch.zeros_like(T)
+        p = V = None
+        for _ in range(n_iter):
+            x, V = assemble_ifluidnet_input(T, u, v, self.grid,
+                                            self._static, self.params)
+            u, v, p = self.apply_fn(_edge_pad_w(x, 3))
+            u, v = u[..., 3:-3], v[..., 3:-3]
+            if p is not None:
+                p = p[..., 3:-3]
+        u = _zero_corners(u * self.scaler)
+        v = _zero_corners(v * self.scaler)
+        if p is not None:
+            p = _zero_corners(p)
+        return u, v, p, V
+
+    @torch.no_grad()
+    def step_iterative(self, T, dt=None, n_iter: int = 1):
+        """One coupled legacy step: :meth:`stokes_iterative`, then the
+        explicit energy update with BC stamping (pycold-checkpoint.py:
+        401-414); returns (T_new, dt, u, v, p, V) like :meth:`step`."""
+        u, v, p, V = self.stokes_iterative(T, n_iter=n_iter)
         T_new, dt = advect_diffuse_step_fused(
             u, v, T, self._raq, self._metrics, dt=dt, cn_max=self.cn_max,
             core_cool=self.core_cool)

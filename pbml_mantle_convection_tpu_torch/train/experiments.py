@@ -5,9 +5,10 @@ entries: the programmatic equivalent of the reference's
 ``network_lists.ipynb`` cell 0, the recorded training commands spanning
 the architecture / padding / loss ablation grid. Each entry is argv for
 this package's train CLI (cli/train.py). Run one with
-``run_experiment(name)`` or list them with ``EXPERIMENTS``; an entry
-whose network or option the port does not build yet raises
-``NotImplementedError`` naming its ROADMAP item.
+``run_experiment(name)`` or list them with ``EXPERIMENTS``. Every entry
+runs; ``fluidnet_base``'s six learned-padding levels need a grid of at
+least 192 cells each way (its deepest branch must keep the 6-cell slab),
+and below that it raises a ``ValueError`` (JAX: an ``IndexError``).
 """
 
 from __future__ import annotations

@@ -19,11 +19,18 @@ runs inside ``models/layers.py::float32_convs``, with cuDNN's TF32 off:
 cuDNN reads its flag when the backward's convolutions run, so the
 modules' guard around each forward conv alone would leave every
 gradient in TF32.
+
+With ``drop_rate`` > 0 the train step runs the model with dropout: it
+passes its ``torch.Generator`` (on the model's device) to the model's
+forward, which draws every mask from it (JAX: the step's PRNG key). The
+masks are the port's own; no JAX PRNG stream is reproduced. The eval step
+is deterministic.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -32,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..physics.viscosity import fk_viscosity
 from ..constants import visc_feature
+from ..models.fluidnet import HALF_HEAD
 from ..models.layers import float32_convs
 from ..ops.curl import curl_head_valid
 from ..ops.slice_attention import plain_slice_attention
@@ -49,24 +57,42 @@ class TrainStepConfig:
     # recompute the forward in the backward (torch.utils.checkpoint):
     # activation memory for compute, as JAX's remat
     remat: bool = False
-    # training-time dropout (reference -d_r): not ported
+    # training-time dropout (reference -d_r; the model's forward takes the
+    # step's generator)
     drop_rate: float = 0.0
 
 
-def _bind_apply(apply_fn, cfg: TrainStepConfig):
+def _bind_apply(apply_fn, cfg: TrainStepConfig,
+                generator: Optional[torch.Generator] = None):
     if cfg.drop_rate > 0.0:
-        raise NotImplementedError(
-            "training-time dropout (drop_rate > 0) is not ported yet "
-            "(ROADMAP queue 1 item 6)")
+        if generator is None:
+            raise ValueError("drop_rate > 0 needs a torch.Generator for "
+                             "the dropout masks")
+        apply_fn = functools.partial(apply_fn, generator=generator)
+
     def plain_apply(x):
         # entered inside what checkpoint recomputes: the recompute runs
         # the same einsum path, on whichever thread the backward uses
         with plain_slice_attention():
             return apply_fn(x)
 
-    if cfg.remat:
+    if not cfg.remat:
+        return plain_apply
+    if cfg.drop_rate <= 0.0:
         return lambda x: checkpoint(plain_apply, x, use_reentrant=False)
-    return plain_apply
+
+    def remat_apply(x):
+        # the recompute draws the forward's masks again: the generator is
+        # put back to its state before the forward (checkpoint restores
+        # torch's default generators only)
+        state = generator.get_state()
+
+        def run(x):
+            generator.set_state(state)
+            return plain_apply(x)
+
+        return checkpoint(run, x, use_reentrant=False)
+    return remat_apply
 
 
 def _fluidnet_loss_fn(apply_fn, cfg: TrainStepConfig):
@@ -168,12 +194,16 @@ def _convae_loss_fn(apply_fn, cfg: TrainStepConfig):
     return loss_fn
 
 
-def make_loss_fn(apply_fn: Callable, cfg: TrainStepConfig):
+def make_loss_fn(apply_fn: Callable, cfg: TrainStepConfig,
+                 generator: Optional[torch.Generator] = None):
     """``loss_fn(batch) -> LossBreakdown`` of the network family of
     ``cfg.net``; ``apply_fn`` maps ``batch["x"]`` to the model's
     outputs (a module, or any callable), called inside
-    ``plain_slice_attention``."""
-    apply_fn = _bind_apply(apply_fn, cfg)
+    ``plain_slice_attention``; with ``cfg.drop_rate`` > 0 it is called
+    with ``generator=generator``, which is required."""
+    if cfg.net == "halfnewfluidnet":
+        raise ValueError(HALF_HEAD)
+    apply_fn = _bind_apply(apply_fn, cfg, generator)
     if cfg.net in ("unet", "iunet"):
         return _unet_loss_fn(apply_fn, cfg)
     if "transolver" in cfg.net:
@@ -204,7 +234,8 @@ def _mean_breakdown(br: LossBreakdown, group) -> LossBreakdown:
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     cfg: TrainStepConfig,
-                    process_group: Optional[dist.ProcessGroup] = None):
+                    process_group: Optional[dist.ProcessGroup] = None,
+                    generator: Optional[torch.Generator] = None):
     """``step(batch) -> LossBreakdown``: the loss of ``model`` on
     ``batch``, its gradients (left in each parameter's ``.grad``), and one
     ``optimizer`` update in place. Returns the loss breakdown detached, on
@@ -213,8 +244,10 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     With ``process_group`` each rank passes its shard of the batch; the
     gradients and the breakdown are all-reduced to their mean (equal
     shards: the full-batch update). JAX's ``donate`` has no counterpart:
-    the optimizer updates the parameters in place."""
-    loss_fn = make_loss_fn(model, cfg)
+    the optimizer updates the parameters in place. With ``cfg.drop_rate``
+    > 0 the dropout masks come from ``generator`` (required, on the
+    model's device), which each step advances."""
+    loss_fn = make_loss_fn(model, cfg, generator)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch) -> LossBreakdown:

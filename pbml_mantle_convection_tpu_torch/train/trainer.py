@@ -169,8 +169,17 @@ class Trainer:
             loss_scale=cfg.loss_scale, loss_derivative=cfg.loss_derivative,
             loss_type=cfg.model.loss_type, roll_forward=cfg.roll_forward,
             drop_rate=cfg.model.drop_rate)
+        # dropout masks from a generator on the device, seeded from seed + 1
+        # as JAX seeds its dropout key (trainer.py:162-166); each rank its
+        # own stream (JAX folds in the device index)
+        self.dropout_generator = None
+        if step_cfg.drop_rate > 0.0:
+            self.dropout_generator = torch.Generator(
+                device=self.device).manual_seed(
+                    cfg.seed + 1 + (self.rank << 32))
         self._train_step = make_train_step(self.model, self.optimizer,
-                                           step_cfg, self.group)
+                                           step_cfg, self.group,
+                                           self.dropout_generator)
         self._eval_step = make_eval_step(self.model, step_cfg, self.group)
 
         self.start_epoch = 0

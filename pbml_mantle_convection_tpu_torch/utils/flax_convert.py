@@ -3,18 +3,25 @@
 ``from_jax_params`` turns a parameter tree of the JAX package (every leaf
 already a numpy array, so no JAX import is needed here) into a
 ``state_dict`` of this package's model of the same family: the FluidNet
-family (:class:`~..models.fluidnet.NewFluidNet`), the U-Net family
-(``models/unet.py``: ``Unet``, ``ConvAE``) and the Transolvers
-(``models/transolver.py``). A path's parts joined by dots name the
-parameter; the leaf is turned by its name and rank:
+family (``models/fluidnet.py``, the multi-scale ensemble's members under
+``nets_{i}``), the U-Net family (``models/unet.py``: ``Unet``,
+``ConvAE``), the Transolvers (``models/transolver.py``) and the ViT
+(``models/vit.py``, whose modules carry Flax's automatic names). A path's
+parts joined by dots name the parameter; the leaf is turned by its name
+and rank:
 
   …/kernel, 2-D (in, out)              → ….weight (out, in)   Dense
-  …/kernel, 4-D HWIO                   → ….weight OIHW        conv
+  …/kernel, 4-D HWIO                   → ….weight OIHW        conv (a
+                                          symmetric conv's (k, k, c_i,
+                                          n_unique): its unique filters)
+  …/kernel, 5-D DHWIO                  → ….weight OIDHW       3-D conv
   …/in_project_{fx,x}_kernel, 5-D DHWIO → the same name, OIDHW (3-D conv)
   …/scale                              → ….weight   GroupNorm, LayerNorm
   …/learnable_bias (1,1,1,C)           → …, (C,)
   GroupNorm_0 path parts                 are dropped
-  anything else (bias, temperature, placeholder, the 3-D ``_bias``) as it is.
+  anything else (bias, temperature, placeholder, the 3-D ``_bias``, the
+  spectral conv's ``weights{1,2}_{real,imag}``, the ViT's
+  ``pos_embedding`` and ``cls_token``) as it is.
 
 It is the inverse of the JAX package's ``utils/torch_convert.py`` on the
 FluidNet family.
@@ -42,6 +49,8 @@ def _leaf(name: str, a: np.ndarray) -> tuple[str, np.ndarray]:
             return "weight", a.T
         if a.ndim == 4:
             return "weight", a.transpose(3, 2, 0, 1)
+        if a.ndim == 5:
+            return "weight", a.transpose(4, 3, 0, 1, 2)
         raise ValueError(f"a {a.ndim}-D 'kernel' leaf has no torch layout")
     if name.endswith("_kernel") and a.ndim == 5:
         return name, a.transpose(4, 3, 0, 1, 2)

@@ -8,12 +8,14 @@ the port's module names instead; the reference's tensors are already in
 PyTorch layouts (OIHW convs, (out, in) Linear weights), so the work is
 renaming, and one reshape:
 
-NewFluidNet (pytorch_networks_convae.py:1068-1388):
+NewFluidNet and FluidNet (pytorch_networks_convae.py:1068-1697):
   conv.0.layers.0.*      → conv_0.conv.*         (FluidLayer conv or BLC)
   conv.0.layers.1.*      → conv_0.gn.*           (GroupNorm)
   convs.{l}.{r}.layers.* → convs_{l}_{r}.{conv,gn}.*
   conv.1|2|3.*           → conv_1|2|3.*;  gn.0.* → gn_0.*
   BLC learnable_bias (1, C, 1, 1) → (C,)
+  a symmetric conv's unique filters (n_unique, c_i, k, k) → its weight
+  a spectral conv's complex weights1|2 → weights1|2_real, weights1|2_imag
 
 Unet (pytorch_networks_convae.py:1700-2070):
   conv.{r<repeats}       → conv_{r};  convs.{l}.{r} → convs_{l}_{r}
@@ -24,11 +26,16 @@ Transolver ``Model`` (Transolver_Structured_Mesh_2D-checkpoint.py:41-77):
   blocks.{i}.*           → blocks_{i}.*
   preprocess.linear_pre.0, Attn.to_out.0, mlp.linear_pre.0 → without the .0
 
-What the port does not build raises ``NotImplementedError`` naming its
-ROADMAP item: symmetric convs (a conv whose unique filters are fewer than
-its outputs), spectral convs (``weights1``/``weights2``), the ViT and the
-other fluidnet variants (queue 1 item 6); so does the ConvAE, whose
-reference names no map holds.
+lucidrains ViT (vit_pytorch-checkpoint.py:85-133), under ViTField's
+``vit.``: the Flax automatic names of JAX's ``convert_vit`` (:199-235),
+``to_patch_embedding.1|2|3`` → ``LayerNorm_0``, ``Dense_0``,
+``LayerNorm_1``; ``transformer.layers.{i}.0|1`` →
+``Transformer_0.attn_{i}|ff_{i}``; ``mlp_head`` → ``Dense_1``.
+
+The HalfNewFluidNet and the multi-scale ensemble raise: the reference lost
+both classes (SURVEY.md §2), so no checkpoint of them exists, and the JAX
+converter has no map for them; so does the ConvAE, whose reference names
+no map holds.
 """
 
 from __future__ import annotations
@@ -37,52 +44,54 @@ from typing import Dict, Mapping
 
 import torch
 
-from ..models.registry import _UNPORTED
-
 _BLC_SUBMODULES = (
     "conv", "conv_top_left", "conv_top_right", "conv_bottom_left",
     "conv_bottom_right", "conv_top", "conv_bottom", "conv_left",
     "conv_right")
-_ITEM6 = "ROADMAP queue 1 item 6"
+# networks whose reference checkpoints have no conversion, and why
+NO_CONVERSION = {
+    "halfnewfluidnet": "the reference lost the HalfNewFluidNet class "
+                       "(SURVEY.md §2): no checkpoint of it exists and the "
+                       "JAX package's converter has no map for it",
+    "multiscalenewfluidnet": "the reference lost the multi-scale ensemble "
+                             "(SURVEY.md §2): no checkpoint of it exists and "
+                             "the JAX package's converter has no map for it",
+    "convae": "the reference's ConvAE is a checkpoint-only model "
+              "(pycold-checkpoint.py:989) whose state_dict names the JAX "
+              "package's name map does not hold: no conversion (ROADMAP "
+              "queue 1 item 8, left out)",
+}
 
 
 def _tensor(t) -> torch.Tensor:
     return torch.as_tensor(t).detach().clone().contiguous()
 
 
-def _check_unique_filters(w, n_out: int, key: str) -> None:
-    if w.shape[0] != n_out:
-        raise NotImplementedError(
-            f"{key}: {w.shape[0]} unique filters for {n_out} outputs is a "
-            f"symmetric conv, which is not ported yet ({_ITEM6})")
-
-
 def _convert_conv(out: Dict, dst: str, sd: Mapping, src: str) -> None:
-    """One conv-ish reference submodule at ``src`` (a plain conv or a
-    boundary-learned one) → the port's names under ``dst``."""
+    """One conv-ish reference submodule at ``src`` (a plain, symmetric,
+    boundary-learned or spectral conv) → the port's names under ``dst``.
+    A symmetric conv stores its unique filters, as the port's does: they
+    go across as they are."""
     rels = {k[len(src) + 1:]: k for k in sd if k.startswith(src + ".")}
-    if "weights1" in rels or "weights2" in rels:
-        raise NotImplementedError(
-            f"{src}: a spectral conv (SpectralConv2d) is not ported yet "
-            f"({_ITEM6})")
+    if "weights1" in rels:  # SpectralConv2d
+        for i in (1, 2):
+            w = torch.as_tensor(sd[rels[f"weights{i}"]])
+            out[f"{dst}.weights{i}_real"] = _tensor(w.real)
+            out[f"{dst}.weights{i}_imag"] = _tensor(w.imag)
+        return
     if "learnable_bias" in rels:  # BoundaryLearnedConvolution2D
-        lb = _tensor(sd[rels["learnable_bias"]]).reshape(-1)
         for sub in _BLC_SUBMODULES:
             wk = f"{sub}.weight"
             if wk in rels:
-                w = _tensor(sd[rels[wk]])
-                _check_unique_filters(w, lb.numel(), rels[wk])
-                out[f"{dst}.{sub}.weight"] = w
-        out[f"{dst}.learnable_bias"] = lb
+                out[f"{dst}.{sub}.weight"] = _tensor(sd[rels[wk]])
+        out[f"{dst}.learnable_bias"] = _tensor(
+            sd[rels["learnable_bias"]]).reshape(-1)
         return
     if "weight" not in rels:
         raise KeyError(f"no conv weights under {src!r}")
-    w = _tensor(sd[rels["weight"]])
     if "bias" in rels:
-        b = _tensor(sd[rels["bias"]])
-        _check_unique_filters(w, b.numel(), rels["weight"])
-        out[f"{dst}.bias"] = b
-    out[f"{dst}.weight"] = w
+        out[f"{dst}.bias"] = _tensor(sd[rels["bias"]])
+    out[f"{dst}.weight"] = _tensor(sd[rels["weight"]])
 
 
 def _convert_gn(out: Dict, dst: str, sd: Mapping, src: str) -> None:
@@ -99,8 +108,9 @@ def _convert_fluid_layer(out: Dict, dst: str, sd: Mapping, src: str):
 
 def convert_fluidnet(state_dict: Mapping, levels: int, repeats: int
                      ) -> Dict[str, torch.Tensor]:
-    """NewFluidNet state_dict (plain or boundary-learned convs) → the
-    port's ``models/fluidnet.py::NewFluidNet`` state_dict."""
+    """NewFluidNet or FluidNet state_dict (plain, symmetric,
+    boundary-learned or spectral convs) → the port's
+    ``models/fluidnet.py`` state_dict of the same class."""
     sd = dict(state_dict)
     out: Dict[str, torch.Tensor] = {}
     _convert_fluid_layer(out, "conv_0", sd, "conv.0")
@@ -159,23 +169,52 @@ def convert_transolver(state_dict: Mapping, n_layers: int
     return out
 
 
+def convert_vit(state_dict: Mapping, depth: int, prefix: str = ""
+                ) -> Dict[str, torch.Tensor]:
+    """lucidrains ViT state_dict → the port's ``models/vit.py::ViT``
+    state_dict, its keys under ``prefix`` ("vit." for ``ViTField``); the
+    names of JAX's ``convert_vit``, the tensors as they are."""
+    sd = dict(state_dict)
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(dst, src, bias=True):
+        out[f"{prefix}{dst}.weight"] = _tensor(sd[f"{src}.weight"])
+        if bias:
+            out[f"{prefix}{dst}.bias"] = _tensor(sd[f"{src}.bias"])
+
+    put("LayerNorm_0", "to_patch_embedding.1")
+    put("Dense_0", "to_patch_embedding.2")
+    put("LayerNorm_1", "to_patch_embedding.3")
+    for name in ("pos_embedding", "cls_token"):
+        out[prefix + name] = _tensor(sd[name])
+    for i in range(depth):
+        a, f = f"transformer.layers.{i}.0", f"transformer.layers.{i}.1"
+        t = f"Transformer_0.attn_{i}"
+        put(f"{t}.LayerNorm_0", f"{a}.norm")
+        put(f"{t}.Dense_0", f"{a}.to_qkv", bias=False)
+        put(f"{t}.Dense_1", f"{a}.to_out.0")
+        t = f"Transformer_0.ff_{i}"
+        put(f"{t}.LayerNorm_0", f"{f}.net.0")
+        put(f"{t}.Dense_0", f"{f}.net.1")
+        put(f"{t}.Dense_1", f"{f}.net.4")
+    put("Transformer_0.LayerNorm_0", "transformer.norm")
+    put("Dense_1", "mlp_head")
+    return out
+
+
 def load_reference_checkpoint(path: str, network: str, levels: int,
                               repeats: int) -> Dict[str, torch.Tensor]:
     """Read a reference ``.pt`` state_dict (``weights_only``) and convert
     it for the port's ``network`` (for a Transolver ``levels`` is its
-    number of blocks, as in the JAX package)."""
-    if network in _UNPORTED:
-        raise NotImplementedError(f"network {network!r} is not ported yet "
-                                  f"({_UNPORTED[network]})")
-    if network == "convae":
-        raise NotImplementedError(
-            "the reference's ConvAE is a checkpoint-only model "
-            "(pycold-checkpoint.py:989) whose state_dict names the JAX "
-            "package's name map does not hold: no conversion (ROADMAP "
-            "queue 1 item 8, left out)")
+    number of blocks, for the ViT its depth, as in the JAX package's
+    converters). The networks of :data:`NO_CONVERSION` raise."""
+    if network in NO_CONVERSION:
+        raise NotImplementedError(NO_CONVERSION[network])
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if network in ("unet", "iunet"):
         return convert_unet(sd, levels, repeats)
     if "transolver" in network:
         return convert_transolver(sd, levels)
+    if network == "vit":
+        return convert_vit(sd, levels, prefix="vit.")
     return convert_fluidnet(sd, levels, repeats)

@@ -15,8 +15,9 @@ reference-checkpoint bridge against the JAX package's, on the CPU.
   replicate padding), the U-Net and TransolverStructured2D: equal to
   ``from_jax_params`` of the JAX converter's tree, loaded with
   ``strict=True``, a float64 forward equal to the JAX model's at 1e-9;
-  symmetric and spectral convs and the ViT raise naming ROADMAP queue 1
-  item 6.
+  so are symmetric and spectral convs, and a NewFluidNet checkpoint loads
+  into a FluidNet (the same names); the HalfNewFluidNet and the ensemble,
+  classes the reference lost, raise.
 """
 
 import json
@@ -45,7 +46,8 @@ from pbml_mantle_convection_tpu_torch.constants import SimParams  # noqa: E402
 from pbml_mantle_convection_tpu_torch.data import dataset as td  # noqa: E402
 from pbml_mantle_convection_tpu_torch.data import synthetic as tsyn  # noqa: E402
 from pbml_mantle_convection_tpu_torch.models import transolver as tt  # noqa: E402
-from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet  # noqa: E402
+from pbml_mantle_convection_tpu_torch.models.fluidnet import (  # noqa: E402
+    FluidNet, NewFluidNet)
 from pbml_mantle_convection_tpu_torch.models.unet import Unet  # noqa: E402
 from pbml_mantle_convection_tpu_torch.utils import evaluation as tev  # noqa: E402
 from pbml_mantle_convection_tpu_torch.utils import torch_convert as tconv  # noqa: E402
@@ -55,7 +57,6 @@ from pbml_mantle_convection_tpu_torch.utils.profiling import (  # noqa: E402
     StepTimer, trace)
 
 F64 = torch.float64
-ITEM6 = "ROADMAP queue 1 item 6"
 
 
 # ------------------------------------------------------------ evaluation
@@ -384,33 +385,54 @@ def test_load_reference_checkpoint(tmp_path):
     np.testing.assert_array_equal(
         tm.conv_0.conv.learnable_bias.detach().numpy(),
         sd["conv.0.layers.0.learnable_bias"].numpy().reshape(-1))
-    for net in ("vit", "fluidnet", "halfnewfluidnet"):
-        with pytest.raises(NotImplementedError, match=ITEM6):
+    # the FluidNet's reference names are NewFluidNet's, and its learned
+    # merge-1 (bc = 2) has kernels of the same shapes: the checkpoint
+    # loads into it strictly (the ViT's reading: tests/
+    # test_torch_port_models_item6.py)
+    fm = FluidNet(**kw, device="cpu", dtype=F64)
+    fm.load_state_dict(tconv.load_reference_checkpoint(path, "fluidnet",
+                                                       2, 1), strict=True)
+    assert torch.equal(fm.conv_1.conv.weight, tm.conv_1.conv.weight)
+    for net in ("halfnewfluidnet", "multiscalenewfluidnet"):
+        with pytest.raises(NotImplementedError, match="reference lost"):
             tconv.load_reference_checkpoint(path, net, 2, 1)
     with pytest.raises(NotImplementedError, match="ConvAE"):
         tconv.load_reference_checkpoint(path, "convae", 2, 1)
 
 
-def test_convert_refuses_symmetric_and_spectral_convs():
+def _complex_spectral(sd):
+    """The reference's SpectralConv2d holds complex ``weights1|2``."""
+    out = {}
+    for k, v in sd.items():
+        if k.endswith("_imag"):
+            continue
+        if k.endswith("_real"):
+            k, v = k[:-5], torch.complex(v, sd[k[:-5] + "_imag"])
+        out[k] = v
+    return out
+
+
+@pytest.mark.parametrize("kind", ["symmetric", "symmetric_learned",
+                                  "spectral"])
+def test_convert_takes_symmetric_and_spectral_convs(kind):
+    """A symmetric conv's unique filters go straight across (plain and
+    learned-boundary layers), a spectral conv's complex weights split into
+    real and imaginary parts: equal to ``from_jax_params`` of the JAX
+    converter's tree, a strict load, the forward equal to the Flax
+    model's at 1e-9."""
+    H, W = 16, 24
     kw = dict(levels=2, c_i=7, c_h=8, c_o=1, act_fn="gelu", repeats=1, f=5,
-              loss_type="curl", p_pred=False)
-    sd = _reference_sd(NewFluidNet(**kw, r_p="replicate", device="cpu",
-                                   dtype=F64), _ref_name_fluidnet, 8)
-    symm = dict(sd)
-    w = symm["convs.1.0.layers.0.weight"]
-    symm["convs.1.0.layers.0.weight"] = w[:6]        # 6 unique of 8
-    with pytest.raises(NotImplementedError, match=f"symmetric.*{ITEM6}"):
-        tconv.convert_fluidnet(symm, 2, 1)
-    blc = _reference_sd(NewFluidNet(**kw, r_p="learned", device="cpu",
-                                    dtype=F64), _ref_name_fluidnet, 9)
-    blc["conv.2.conv_top.weight"] = blc["conv.2.conv_top.weight"][:4]
-    with pytest.raises(NotImplementedError, match=f"symmetric.*{ITEM6}"):
-        tconv.convert_fluidnet(blc, 2, 1)
-    spec = {k: v for k, v in sd.items()
-            if not k.startswith("convs.0.0.layers.0.")}
-    spec["convs.0.0.layers.0.weights1"] = torch.zeros(8, 8, 4, 4,
-                                                      dtype=torch.cfloat)
-    spec["convs.0.0.layers.0.weights2"] = torch.zeros(8, 8, 4, 4,
-                                                      dtype=torch.cfloat)
-    with pytest.raises(NotImplementedError, match=f"spectral.*{ITEM6}"):
-        tconv.convert_fluidnet(spec, 2, 1)
+              loss_type="curl", p_pred=False,
+              **{"symmetric": dict(r_p="replicate", use_symm=True),
+                 "symmetric_learned": dict(r_p="learned", use_symm=True),
+                 "spectral": dict(r_p="zeros",
+                                  spectral_conv=True)}[kind])
+    tm = NewFluidNet(**kw, device="cpu", dtype=F64)
+    sd = _complex_spectral(_reference_sd(tm, _ref_name_fluidnet, 8))
+    if kind != "spectral":
+        assert sd["convs.1.0.layers.0.weight" if kind == "symmetric"
+                  else "conv.2.conv_top.weight"].shape[0] == 7  # of 8
+    jtree = jconv.convert_fluidnet(_np_sd(sd), 2, 1)
+    x = np.random.default_rng(2).random((1, H, W, 7))
+    _check_bridge(sd, tm, JNewFluidNet(**kw), jtree, x,
+                  tconv.convert_fluidnet(sd, 2, 1))

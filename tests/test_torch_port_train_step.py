@@ -268,13 +268,50 @@ def test_convae_loss_branch_matches_jax(p_pred, crop):
                                rtol=1e-12, atol=1e-12)
 
 
-def test_dropout_is_not_ported():
-    m = NewFluidNet(device="cpu", **NFN)
-    cfg = tts.TrainStepConfig(drop_rate=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+def test_dropout_train_step_runs_from_its_generator():
+    """With ``drop_rate`` > 0 the train step needs a generator and draws
+    every mask from it: two steps from the same weights and the same seed
+    give the same gradients and parameters, another seed others; the
+    recomputing step (``remat``) draws the forward's masks again, so its
+    gradients are the plain step's; the eval step runs deterministic, as
+    the JAX eval step does (its breakdown is the model without dropout's).
+    The masks are the port's own, so JAX's dropout step is not the
+    reference here; its gradients with dropout off are
+    (test_gradients_match_jax, tests/test_torch_port_train_item6.py)."""
+    cfg = tts.TrainStepConfig(drop_rate=0.1, **STEP)
+    rng = np.random.default_rng(3)
+    batch = {"x": torch.as_tensor(rng.normal(size=(2, 16, 24, 7))),
+             "y": torch.as_tensor(rng.normal(size=(2, 2, 16, 24)))}
+    m = NewFluidNet(device="cpu", dtype=F64, **{**NFN, "drop_rate": 0.1})
+    with pytest.raises(ValueError, match="torch.Generator"):
         tts.make_train_step(m, adam_l2(m.parameters(), 1e-3), cfg)
+
+    def step(seed, remat=False):
+        net = NewFluidNet(device="cpu", dtype=F64,
+                          **{**NFN, "drop_rate": 0.1})
+        net.load_state_dict(m.state_dict())
+        g = torch.Generator().manual_seed(seed)
+        br = tts.make_train_step(
+            net, adam_l2(net.parameters(), 1e-3),
+            tts.TrainStepConfig(drop_rate=0.1, remat=remat, **STEP),
+            generator=g)(batch)
+        return br, {n: q.grad.clone() for n, q in net.named_parameters()}, \
+            {n: q.detach().clone() for n, q in net.named_parameters()}
+
+    a, b, c, r = step(7), step(7), step(8), step(7, remat=True)
+    assert torch.equal(a[0].stack(), b[0].stack())
+    assert all(torch.equal(a[1][n], b[1][n]) and torch.equal(a[2][n],
+                                                             b[2][n])
+               for n in a[1])
+    assert not torch.equal(a[0].stack(), c[0].stack())
+    for n in a[1]:
+        torch.testing.assert_close(r[1][n], a[1][n], rtol=1e-12, atol=1e-14)
     # the eval step runs deterministic, as the JAX eval step does
-    tts.make_eval_step(m, cfg)
+    plain = NewFluidNet(device="cpu", dtype=F64, **NFN)
+    plain.load_state_dict(m.state_dict())
+    ev = tts.make_eval_step(m, cfg)(batch).stack()
+    assert torch.equal(ev, tts.make_eval_step(
+        plain, tts.TrainStepConfig(**STEP))(batch).stack())
 
 
 def test_donate_is_a_no_op(capsys):

@@ -234,13 +234,24 @@ def test_registry_builds_the_jax_models(net):
 
 @pytest.mark.parametrize("net", ["fluidnet", "ifluidnet", "halfnewfluidnet",
                                  "vit", "multiscalenewfluidnet"])
-def test_registry_raises_for_unported_networks(net):
-    cfg = treg.ModelConfig(network=net)
-    assert cfg.channels == jreg.ModelConfig(network=net).channels
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        treg.build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="use_symm"):
-        treg.build_model(treg.ModelConfig(use_symm=True), device="cpu")
+def test_registry_builds_the_other_networks_as_jax(net):
+    """The networks of the JAX registry beside the Transolvers build, with
+    the parameter names and shapes of the Flax module JAX's registry
+    builds (at ModelConfig's defaults but for width and depth); so does
+    NewFluidNet with ``use_symm``; an unknown network raises."""
+    kw = dict(network=net, levels=2, c_h=8, repeats=1, n_hidden=16,
+              n_layers=1, n_head=2, H=16, W=24)
+    cfg = treg.ModelConfig(**kw)
+    assert cfg.channels == jreg.ModelConfig(**kw).channels
+    for kw in (kw, dict(kw, network="newfluidnet", use_symm=True)):
+        jcfg, tcfg = jreg.ModelConfig(**kw), treg.ModelConfig(**kw)
+        x = jnp.zeros((1, 16, 24, jcfg.channels[0]))
+        p = jax.eval_shape(jreg.build_model(jcfg).init,
+                           jax.random.PRNGKey(0), x)
+        want = {k: tuple(v.shape) for k, v in from_jax_params(
+            jax.tree.map(lambda a: np.zeros(a.shape), p)).items()}
+        got = treg.build_model(tcfg, device="cpu").state_dict()
+        assert {k: tuple(v.shape) for k, v in got.items()} == want
     with pytest.raises(ValueError, match="unknown network"):
         treg.build_model(treg.ModelConfig(network="resnet"), device="cpu")
 

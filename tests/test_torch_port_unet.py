@@ -147,9 +147,12 @@ def test_registry_builds_the_unet_family_as_jax(net):
     assert isinstance(tm, ConvAE if net == "convae" else Unet)
     want = {k: tuple(v.shape) for k, v in from_jax_params(_np(p)).items()}
     assert {k: tuple(v.shape) for k, v in tm.state_dict().items()} == want
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        registry.build_model(registry.ModelConfig(**{**kw, "dilation": 2}),
-                             device="cpu")
+    # the layer options build too (their forwards: tests/
+    # test_torch_port_fluidnet_item6.py)
+    tm = registry.build_model(registry.ModelConfig(**{**kw, "dilation": 2}),
+                              device="cpu")
+    layer = tm.stem if net == "convae" else tm.convs_0_0
+    assert layer.conv.dilation == 2
 
 
 @pytest.mark.parametrize("p_pred", [False, True])

@@ -9,29 +9,36 @@ own error (max |diff| / their own max |f64|) passes 1e-5. Networks
 (``--net``): ``flagship``, the NewFluidNet of ``bench.py`` (levels 5,
 c_h 16, repeats 6, k 5, learned padding, curl); ``unet``, the U-Net of
 ``train/experiments.py::unet_roll1`` (levels 4, c_h 32, repeats 2, k 5,
-replicate padding, curl). Routes of the float32 step (``--routes``):
+replicate padding, curl); the networks of ``chip_smoke.py`` phase 11
+(``OTHER_GRAD_NETS``): ``symm`` (the flagship with symmetric convs),
+``fluidnet`` (levels 5, repeats 4), ``multiscale`` (levels 4, repeats
+4), ``spectral`` (levels 3, repeats 2, zero padding), ``vit``
+(ModelConfig's defaults). Routes of the float32 step (``--routes``):
 
 * ``parent``: every conv's weight gradient on cuDNN (the package before
   the repairs of ROADMAP §3 faults 7 and 8);
 * ``default``: the package as it is;
 * ``native``: every conv's weight gradient with cuDNN off (PyTorch's
   own CUDA convolution; ``models/layers.py::conv2d_routed``), its
-  forward and input gradient on cuDNN; for the flagship, the 8 boundary
-  slabs of every learned-boundary conv;
+  forward and input gradient on cuDNN; for a learned-boundary conv, its
+  8 boundary slabs;
+* ``native_inner``: ``native`` and the interior conv of every
+  learned-boundary conv;
 * ``native@a+b``: the same for the modules ``a``, ``b`` only (a
   ``Conv2dTorch``'s, or a learned-boundary conv's slabs);
 * ``no_cudnn``: the whole step with cuDNN off.
 
 ``--readings``: each route at each ``--batches`` B and weight ``--seeds``
-(one JSON line each). ``--locate`` (U-Net): where the default route's
-error enters, at each B and seed: the loss gradient with respect to the
-last conv's output (``conv_m1``, before the mean subtraction and the
-head) in float32 against float64, the pixels where the two differ by
-more than 1e-3 of its max (with the raw T channel there: ``clamp(T, 0,
-1.5)`` and the L1 terms' ``abs`` have kinks that float32's rounding can
-cross), and the float64 network's parameter gradients when float32's
-output gradient is fed back through it: if those match the float32
-step's, all of the error came in with that output gradient.
+(one JSON line each), on the ``--data`` of the tool or of phase 11.
+``--locate``: where the default route's error enters, at each B and
+seed: the loss gradient with respect to the last conv's output (the
+U-Net's ``conv_m1``, a FluidNet's ``conv_3``, before the mean
+subtraction and the head) in float32 against float64, the pixels where
+the two differ by more than 1e-3 of its max (``clamp(T, 0, 1.5)`` and
+the L1 terms' ``abs`` have kinks that float32's rounding can cross), and
+the float64 network's parameter gradients when float32's output gradient
+is fed back through it: if those match the float32 step's, all of the
+error came in with that output gradient.
 ``--algorithms``: the device kernels of each of the flagship's conv
 shapes (the interior conv and the band slabs of every
 layer) forward and backward, by name, at each ``--batches`` B
@@ -58,26 +65,40 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 os.pardir))
 
 ROUTES = ("parent", "default", "native", "no_cudnn")
-# the networks: their benchmark CLI flags and their input channels
+# the networks: their benchmark CLI flags (None: the CLI does not build
+# it) and their input channels
 NETS = {"flagship": (["-l", "5", "-f", "16", "-r", "6", "-k", "5", "-pad",
                       "learned"], 7),
         "unet": (["-net", "unet", "-l", "4", "-f", "32", "-r", "2", "-k",
-                  "5", "-pad", "replicate"], 10)}
+                  "5", "-pad", "replicate"], 10),
+        "symm": (None, 7),
+        "fluidnet": (["-net", "fluidnet", "-l", "5", "-r", "4"], 7),
+        "multiscale": (["-net", "multiscalenewfluidnet", "-l", "4", "-r",
+                        "4"], 7),
+        "spectral": (None, 7),
+        "vit": (["-net", "vit", "--batch", "4"], 7)}
+# the phase-11 networks by their OTHER_GRAD_NETS entries
+_PHASE11 = {"symm": 0, "fluidnet": 1, "multiscale": 2, "spectral": 3,
+            "vit": 4}
 
 
 def set_route(model, name):
     """Set the weight-gradient route of ``model``'s convs for the route
     ``name`` (module doc); returns the model."""
     from pbml_mantle_convection_tpu_torch.models.layers import (
-        BoundaryLearnedConvolution2D, Conv2dTorch)
+        BoundaryLearnedConvolution2D, Conv2dTorch, SymmetricConv2d)
     if name in ("default", "no_cudnn"):
         return model
     route, _, only = name.partition("@")
     only = set(only.split("+")) if only else None
     for path, mod in model.named_modules():
-        if isinstance(mod, (BoundaryLearnedConvolution2D, Conv2dTorch)):
-            mod.wgrad_off_cudnn = route == "native" and (only is None
-                                                         or path in only)
+        if isinstance(mod, (BoundaryLearnedConvolution2D, Conv2dTorch,
+                            SymmetricConv2d)):
+            on = route.startswith("native") and (only is None
+                                                 or path in only)
+            mod.wgrad_off_cudnn = on
+            if isinstance(mod, BoundaryLearnedConvolution2D):
+                mod.inner_wgrad_off_cudnn = on and route == "native_inner"
     return model
 
 
@@ -102,6 +123,10 @@ def build(net, seed, H, W, device="cuda"):
     from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet
     from pbml_mantle_convection_tpu_torch.models.registry import (
         ModelConfig, build_model)
+    if net in _PHASE11:
+        from chip_smoke import OTHER_GRAD_NETS, other_model
+        return other_model(OTHER_GRAD_NETS[_PHASE11[net]][1], device, seed,
+                           H, W)
     if net == "flagship":
         return NewFluidNet(levels=5, c_i=7, c_h=16, c_o=1, act_fn="gelu",
                            r_p="learned", loss_type="curl", repeats=6, f=5,
@@ -112,24 +137,14 @@ def build(net, seed, H, W, device="cuda"):
                                    W=W), seed=seed, device=device)
 
 
-def readings(net, batches, seeds, routes, H=128, W=506):
+def readings(net, batches, seeds, routes, H=128, W=506, data="tool"):
     import torch
     from chip_smoke import train_gradients
-    from pbml_mantle_convection_tpu_torch.sim.grid import Grid
-    c_i = NETS[net][1]
     out = []
     for B in batches:
-        g = torch.Generator().manual_seed(13)
-        x = torch.rand(B, H, W, c_i, generator=g).cuda()
-        y = torch.randn(B, 3 if net == "unet" else 2, H, W,
-                        generator=g).cuda()
-        extra = None
-        if net == "unet":
-            extra = {"paras": torch.tensor([[3.0, 1e8, 10.0]] * B).cuda(),
-                     "yc": torch.as_tensor(Grid(H=H, W=W).yc,
-                                           dtype=torch.float32).cuda()
-                     .expand(B, H, W)}
-        name = "newfluidnet" if net == "flagship" else "unet"
+        x, y, extra = _batch(net, B, H, W, data)
+        name = {"flagship": "newfluidnet", "unet": "unet"}.get(
+            net, "newfluidnet")
         for seed in seeds:
             for r in routes:
                 t0 = time.perf_counter()
@@ -143,6 +158,7 @@ def readings(net, batches, seeds, routes, H=128, W=506):
                 own = {n: e / t for n, (e, t) in per.items() if t > 0}
                 srt = sorted(own.values())
                 rec = {"net": net, "B": B, "seed": seed, "route": r,
+                       "data": data,
                        "rel": rel,
                        "worst": [{"param": n, "rel": per[n][0] / top,
                                   "own": own.get(n)} for n in sorted(
@@ -157,93 +173,49 @@ def readings(net, batches, seeds, routes, H=128, W=506):
     return out
 
 
-def locate(batches, seeds, H=128, W=506, device="cuda"):
-    import copy
-
+def _batch(net, B, H, W, data, device="cuda"):
+    """x, y and the U-Net's extra entries of the readings' data: "tool"
+    (a generator seeded 13: x then y) or "phase11" (``chip_smoke.py``
+    phase 11's: seeded 21, its spectral leg's (1, H, W, 7) draw first)."""
     import torch
-    from chip_smoke import unet_model
-    from pbml_mantle_convection_tpu_torch.models.layers import (
-        float32_convs)
     from pbml_mantle_convection_tpu_torch.sim.grid import Grid
-    from pbml_mantle_convection_tpu_torch.train.train_step import (
-        TrainStepConfig, make_loss_fn)
-    cfg = TrainStepConfig(net="unet", loss_scale=True, loss_derivative=True,
-                          loss_type="curl")
-    torch.backends.cudnn.allow_tf32 = True       # PyTorch's default
-    for B in batches:
-        g = torch.Generator().manual_seed(13)
-        x = torch.rand(B, H, W, 10, generator=g).to(device)
-        y = torch.randn(B, 3, H, W, generator=g).to(device)
+    c_i = NETS[net][1]
+    g = torch.Generator().manual_seed(13 if data == "tool" else 21)
+    if data == "phase11":
+        torch.rand(1, H, W, c_i, generator=g)
+    x = torch.rand(B, H, W, c_i, generator=g).to(device)
+    y = torch.randn(B, 3 if net == "unet" else 2, H, W,
+                    generator=g).to(device)
+    extra = None
+    if net == "unet":
         extra = {"paras": torch.tensor([[3.0, 1e8, 10.0]] * B).to(device),
                  "yc": torch.as_tensor(Grid(H=H, W=W).yc,
                                        dtype=torch.float32).to(device)
                  .expand(B, H, W)}
+    return x, y, extra
+
+
+def locate(net_name, batches, seeds, H=128, W=506, device="cuda",
+           data="tool"):
+    """Where the default route's error enters (module doc,
+    ``chip_smoke.py::locate_kink``), for the U-Net (its last conv
+    ``conv_m1``) or a FluidNet-family network (``conv_3``; the ensemble's
+    ``nets_0.conv_3``)."""
+    import torch
+    from chip_smoke import locate_kink
+    last = {"unet": "conv_m1", "multiscale": "nets_0.conv_3",
+            "vit": "vit.Dense_1"}.get(net_name, "conv_3")
+    torch.backends.cudnn.allow_tf32 = True       # PyTorch's default
+    for B in batches:
+        x, y, extra = _batch(net_name, B, H, W, data, device)
         for seed in seeds:
             t0 = time.perf_counter()
-            net = unet_model(H, W, device, seed)
-            nets = {"f32": net, "f64": copy.deepcopy(net).double()}
-            out, grads = {}, {}
-            for key, m in nets.items():
-                dt = torch.float32 if key == "f32" else torch.float64
-                batch = {k: t.to(dt) for k, t in
-                         {"x": x, "y": y, **extra}.items()}
-                seen = []
-
-                def keep(mod, i, o, seen=seen):
-                    o.retain_grad()
-                    seen.append(o)
-                h = m.conv_m1.register_forward_hook(keep)
-                with float32_convs(batch["x"]):
-                    m.zero_grad(set_to_none=True)
-                    make_loss_fn(m, cfg)(batch).total.backward()
-                h.remove()
-                out[key] = seen[0]
-                grads[key] = {n: q.grad.double()
-                              for n, q in m.named_parameters()}
-            g32, g64 = out["f32"].grad.double(), out["f64"].grad
-            top = float(g64.abs().max())
-            d = (g32 - g64).abs()
-            jumps = (d > 1e-3 * top).nonzero().tolist()
-            # the float64 body fed float32's output gradient
-            m64 = nets["f64"]
-            m64.zero_grad(set_to_none=True)
-            batch = {k: t.double() for k, t in
-                     {"x": x, "y": y, **extra}.items()}
-            seen = []
-            h = m64.conv_m1.register_forward_hook(
-                lambda mod, i, o: seen.append(o) and None)
-            make_loss_fn(m64, cfg)(batch)
-            h.remove()
-            params = dict(m64.named_parameters())
-            fed = torch.autograd.grad(seen[0], list(params.values()),
-                                      grad_outputs=g32, allow_unused=True)
-            fed = {n: torch.zeros_like(q) if f is None else f
-                   for (n, q), f in zip(params.items(), fed)}
-            gtop = max(float(w.abs().max()) for w in grads["f64"].values())
-
-            def rel(a, b):
-                return max(float((a[n] - b[n]).abs().max())
-                           for n in b) / gtop
-            y32, y64 = out["f32"].detach(), out["f64"].detach()
-            rec = {"net": "unet", "B": B, "seed": seed,
-                   "step_rel": rel(grads["f32"], grads["f64"]),
-                   "fed_vs_f32_rel": rel(fed, grads["f32"]),
-                   "fed_vs_f64_rel": rel(fed, grads["f64"]),
-                   "out_grad_rel": float(d.max()) / top,
-                   "out_grad_rel_elsewhere": float(
-                       torch.where(d > 1e-3 * top, 0.0, d).max()) / top,
-                   "jumps": [{"b": b, "c": c, "i": i, "j": j,
-                              "f32": float(g32[b, c, i, j]) / top,
-                              "f64": float(g64[b, c, i, j]) / top,
-                              "T_raw_f32": float(y32[b, 1, i, j]
-                                                 - y32[b, 1].mean()),
-                              "T_raw_f64": float(y64[b, 1, i, j]
-                                                 - y64[b, 1].mean())}
-                             for b, c, i, j in jumps[:8]],
-                   "n_jumps": len(jumps),
+            rec = {"net": net_name, "B": B, "seed": seed, "data": data,
+                   **locate_kink(build(net_name, seed, H, W, device), x, y,
+                                 "unet" if net_name == "unet"
+                                 else "newfluidnet", last, extra),
                    "s": round(time.perf_counter() - t0, 1)}
             print(json.dumps(rec), flush=True)
-            del nets, out, grads, fed, m64, net
             torch.cuda.empty_cache()
 
 
@@ -298,15 +270,49 @@ def algorithms(B, H=128, W=506):
             print(json.dumps(rec), flush=True)
 
 
+def loop_timing(net, r, iters, B=8, H=128, W=506):
+    """ms per train step at B of ``net`` on route ``r``, the CLI's step
+    (curl loss, scaling and derivative terms, Adam 1e-3) in a loop: for
+    the networks the benchmark CLI does not build."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.train.train_step import (
+        TrainStepConfig, make_train_step)
+    from pbml_mantle_convection_tpu_torch.train.trainer import adam_l2
+    m = set_route(build(net, 0, H, W), r)
+    step = make_train_step(m, adam_l2(m.parameters(), 1e-3), TrainStepConfig(
+        net="newfluidnet", loss_scale=True, loss_derivative=True,
+        loss_type="curl"))
+    g = torch.Generator().manual_seed(0)
+    batch = {"x": torch.randn(B, H, W, 7, generator=g).cuda(),
+             "y": torch.randn(B, 2, H, W, generator=g).cuda()}
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = r != "no_cudnn"
+    try:
+        step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step(batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.enabled = enabled
+    return {"metric": f"train_step_{net}_{H}x{W}_B{B}", "value": round(
+        (time.perf_counter() - t0) / iters * 1e3, 3), "unit": "ms"}
+
+
 def timing(net, routes, iters=20):
     import torch
     from pbml_mantle_convection_tpu_torch.cli.benchmark import main as bench
     out = []
     for r in routes + routes[::-1]:
-        buf = io.StringIO()
-        with route(r), contextlib.redirect_stdout(buf):
-            bench(["--what", "train", *NETS[net][0], "--iters", str(iters)])
-        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if NETS[net][0] is None:
+            rec = loop_timing(net, r, iters)
+        else:
+            buf = io.StringIO()
+            with route(r), contextlib.redirect_stdout(buf):
+                bench(["--what", "train", *NETS[net][0], "--iters",
+                       str(iters)])
+            rec = json.loads(buf.getvalue().strip().splitlines()[-1])
         rec["route"] = r
         print(json.dumps(rec), flush=True)
         out.append(rec)
@@ -326,6 +332,7 @@ def main() -> int:
     ap.add_argument("--seeds", default="0,1,2")
     ap.add_argument("--routes", default=",".join(ROUTES))
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--data", default="tool", choices=["tool", "phase11"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_grad_precision: no CUDA device", file=sys.stderr)
@@ -335,10 +342,10 @@ def main() -> int:
     if args.readings:
         readings(args.net, [int(b) for b in args.batches.split(",")],
                  [int(s) for s in args.seeds.split(",")],
-                 args.routes.split(","))
+                 args.routes.split(","), data=args.data)
     if args.locate:
-        locate([int(b) for b in args.batches.split(",")],
-               [int(s) for s in args.seeds.split(",")])
+        locate(args.net, [int(b) for b in args.batches.split(",")],
+               [int(s) for s in args.seeds.split(",")], data=args.data)
     if args.algorithms:
         for b in args.batches.split(","):
             algorithms(int(b))
