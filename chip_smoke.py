@@ -130,8 +130,9 @@ Run from the repository root, with no arguments::
    B = 8), 0 + 0 + 0 + 1 per rollout step; (d) the spectral network
    against float64 on cuFFT; (e) train-step gradients of the symmetric
    flagship, FluidNet, the ensemble, the spectral network and the ViT at
-   B = 2 against float64 (``TOL_TRAIN_GRAD``; above it, a loss kink
-   located by ``locate_kink`` with the backward held to the bound); (f) a
+   B = 2 and weight seeds 0-2 against float64 (``TOL_TRAIN_GRAD``; above
+   it, only a loss kink crossed by rounding, as ``locate_kink`` proves
+   it); (f) a
    dropout train step repeated from its generator's seed; the counts stay
    out of the kernels line;
 12. prints one JSON line of per-kernel numbers (launches summed over
@@ -139,6 +140,13 @@ Run from the repository root, with no arguments::
    from phase 3c alone, under ``zero_instance``, the top-level counts
    being the learned instance's), the card line again, and last ``{"ok": true,
    "device": {...}}``.
+
+``--phase 10`` or ``--phase 11`` builds the kernels and runs phase 3 and
+then that phase alone (the drivers, or the other models, whose steps/s it
+prints beside phase 3's), with their launch checks; it prints no result
+line::
+
+    python3 chip_smoke.py --phase 11
 
 Any failed phase raises, so the script exits non-zero and prints no result
 line; so does a machine without a CUDA device or a directory without the
@@ -1679,86 +1687,174 @@ def train_gradients(net, x, y, net_name, leg="step", extra=None):
 
 
 # a loss kink crossed by rounding (ROADMAP §3 faults 8 and 10): float32's
-# gradient at the last conv's output may leave float64's at a few pixels
-# where an L1 term of the loss sits within rounding of 0; everywhere else
-# the two agree within KINK_ELSEWHERE of its max, and at most KINK_PIXELS
-# pixels jump
+# gradient at the last conv's output may leave float64's where an L1 term
+# of the loss sits within rounding of 0 and the two precisions take
+# opposite sides of its abs(). locate_kink accepts that reading only if
+# at each such flip both arguments lie within KINK_ARG of the term's max
+# |argument| from 0, the flips' own contribution (the sign change times
+# the term's weight, carried to the output in float64) accounts for the
+# whole output-gradient difference but KINK_ELSEWHERE of its max, at most
+# KINK_PIXELS elements flip, and float64's backward fed float32's output
+# gradient reproduces the float32 step within TOL_TRAIN_GRAD (a term
+# whose flips move the output gradient by less than KINK_ELSEWHERE, as
+# the mass residual of a curl head, which is 0 in exact arithmetic, is
+# left out)
 KINK_ELSEWHERE = 1e-5
+KINK_ARG = 1e-5
 KINK_PIXELS = 64
 
 
 def locate_kink(net, x, y, net_name, last, extra=None):
-    """Where a float32 train step's gradient error enters: the loss
-    gradient at the output of the module ``last`` (the last conv, before
-    the mean subtraction and the head) in float32 and in float64, the
-    pixels where they differ by more than 1e-3 of its max, and the
-    float64 network's parameter gradients when float32's output gradient
-    is fed back through it (``fed``). Returns a dict: ``step_rel`` (the
-    reading of :func:`train_gradients`), ``fed_vs_f32_rel`` (the float32
-    step's backward arithmetic given the same output gradient; max |diff|
-    / max |f64| over all parameters), ``fed_vs_f64_rel``,
-    ``out_grad_rel_elsewhere`` (away from the jumps), ``n_jumps`` and the
-    first 8 ``jumps`` (index into the output, both gradients there over
-    float64's max)."""
+    """Where a float32 train step's gradient error enters, and whether a
+    loss kink crossed by rounding explains it. The loss gradient at the
+    output of the module ``last`` (the last conv, before the mean
+    subtraction and the head) is taken in float32 and in float64, with
+    the argument of every ``abs`` the loss takes after it; a flip is an
+    element whose argument has another sign in float32 than in float64
+    and whose weight in the loss is not 0, of a term whose flips change
+    the output gradient by more than KINK_ELSEWHERE of its max (the
+    others are counted in ``n_flips_unreached``). Returns a dict:
+    ``step_rel``
+    (the reading of :func:`train_gradients`), ``fed_vs_f32_rel`` (the
+    float64 backward given float32's output gradient against the float32
+    step; max |diff| / max |f64| over all parameters), ``fed_vs_f64_rel``,
+    ``out_grad_rel`` and ``n_jumps`` (output-gradient elements more than
+    1e-3 of its max apart), ``n_flips``, ``flip_arg_rel`` (the largest
+    |argument| at a flip in either precision over its term's max
+    |argument| in float64), ``unexplained_rel`` (max |g32 - g64 - the
+    flips' contribution| over max |g64|), the first 8 ``flips`` (term,
+    index, both arguments in float32 ulps of the term's max) and the
+    ``verdict`` of :func:`kink_verdict`."""
     import copy
 
     import torch
+    from torch.overrides import TorchFunctionMode
     from pbml_mantle_convection_tpu_torch.models.layers import (
         float32_convs)
     from pbml_mantle_convection_tpu_torch.train.train_step import (
         TrainStepConfig, make_loss_fn)
+
+    class AbsArgs(TorchFunctionMode):
+        """Each abs() taken once ``armed``: its argument and result."""
+
+        def __init__(self):
+            super().__init__()
+            self.armed, self.seen = False, []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            r = func(*args, **(kwargs or {}))
+            if (self.armed and func in (torch.abs, torch.Tensor.abs)
+                    and args[0].requires_grad):
+                self.seen.append((args[0], r))
+            return r
+
     cfg = TrainStepConfig(net=net_name, loss_scale=True,
                           loss_derivative=True, loss_type="curl")
     nets = {"f32": net, "f64": copy.deepcopy(net).double()}
-    out, grads = {}, {}
+    run = {}
     for key, m in nets.items():
         dt = torch.float32 if key == "f32" else torch.float64
         batch = {k: t.to(dt) for k, t in
                  {"x": x, "y": y, **(extra or {})}.items()}
-        seen = []
+        mode, seen = AbsArgs(), []
 
-        def keep(mod, i, o, seen=seen):
-            o.retain_grad()
-            seen.append(o)
+        def keep(mod, i, o, seen=seen, mode=mode):
+            if not seen:
+                o.retain_grad()
+                seen.append(o)
+                mode.armed = True
         h = m.get_submodule(last).register_forward_hook(keep)
-        with float32_convs(batch["x"]):
-            m.zero_grad(set_to_none=True)
-            make_loss_fn(m, cfg)(batch).total.backward()
-        h.remove()
-        out[key] = seen[0]
-        grads[key] = {n: q.grad.double() for n, q in m.named_parameters()
-                      if q.grad is not None}
-    g32, g64 = out["f32"].grad.double(), out["f64"].grad
-    top = float(g64.abs().max())
+        m.zero_grad(set_to_none=True)
+        with float32_convs(batch["x"]):     # the backward's convs too
+            with mode:
+                total = make_loss_fn(m, cfg)(batch).total
+            h.remove()
+            total.backward(retain_graph=key == "f64")
+        run[key] = dict(out=seen[0], total=total, abs=mode.seen, grads={
+            n: q.grad.double() for n, q in m.named_parameters()
+            if q.grad is not None})
+    r32, r64 = run["f32"], run["f64"]
+    if [a.shape for a, _ in r32["abs"]] != [a.shape for a, _ in r64["abs"]]:
+        raise AssertionError("locate_kink: the two precisions took "
+                             "different abs() terms")
+    out64 = r64["out"]
+    g32, g64 = r32["out"].grad.double(), out64.grad
     d = (g32 - g64).abs()
-    jumps = (d > 1e-3 * top).nonzero().tolist()
-    m64 = nets["f64"]
-    m64.zero_grad(set_to_none=True)
-    seen = []
-    h = m64.get_submodule(last).register_forward_hook(
-        lambda mod, i, o: seen.append(o) and None)
-    make_loss_fn(m64, cfg)({k: t.double() for k, t in
-                            {"x": x, "y": y, **(extra or {})}.items()})
-    h.remove()
-    params = {n: q for n, q in m64.named_parameters() if n in grads["f64"]}
-    fed = torch.autograd.grad(seen[0], list(params.values()),
-                              grad_outputs=g32, allow_unused=True)
+    params = {n: q for n, q in nets["f64"].named_parameters()
+              if n in r64["grads"]}
+    fed = torch.autograd.grad(out64, list(params.values()), grad_outputs=g32,
+                              retain_graph=True, allow_unused=True)
     fed = {n: torch.zeros_like(q) if f is None else f
            for (n, q), f in zip(params.items(), fed)}
-    gtop = max(float(w.abs().max()) for w in grads["f64"].values())
+    # each term's weight in the loss, d total / d |argument|
+    weights = torch.autograd.grad(r64["total"], [r for _, r in r64["abs"]],
+                                  retain_graph=True, allow_unused=True)
+    top = float(g64.abs().max())
+    # each flipped term's sign change carried to the output in float64; a
+    # term that does not reach it (the curl head's mass residual is 0 for
+    # any output: rounding alone signs it) has no kink to explain
+    delta = torch.zeros_like(g64)
+    flips, unreached, arg_rel = [], 0, 0.0
+    for t, ((a32, _), (a64, _), c) in enumerate(
+            zip(r32["abs"], r64["abs"], weights)):
+        if c is None:
+            continue
+        a32, b64 = a32.detach().double(), a64.detach()
+        flip = (torch.sign(a32) != torch.sign(b64)) & (c != 0)
+        if not bool(flip.any()):
+            continue
+        got = torch.autograd.grad(
+            a64, out64, grad_outputs=torch.where(
+                flip, c * (torch.sign(a32) - torch.sign(b64)), 0.0),
+            retain_graph=True, allow_unused=True)[0]
+        if got is None or float(got.abs().max()) <= KINK_ELSEWHERE * top:
+            unreached += int(flip.sum())
+            if got is not None:
+                delta += got
+            continue
+        delta += got
+        scale = float(b64.abs().max())
+        for idx in flip.nonzero().tolist():
+            i = tuple(idx)
+            both = max(abs(float(a32[i])), abs(float(b64[i])))
+            arg_rel = max(arg_rel, both / scale)
+            flips.append({"term": t, "at": idx, "ulps_f32": float(a32[i])
+                          / (scale * 2.0 ** -23), "ulps_f64": float(b64[i])
+                          / (scale * 2.0 ** -23)})
+    gtop = max(float(w.abs().max()) for w in r64["grads"].values())
 
     def rel(a, b):
         return max(float((a[n] - b[n]).abs().max()) for n in b) / gtop
-    return {"step_rel": rel(grads["f32"], grads["f64"]),
-            "fed_vs_f32_rel": rel(fed, grads["f32"]),
-            "fed_vs_f64_rel": rel(fed, grads["f64"]),
-            "out_grad_rel": float(d.max()) / top,
-            "out_grad_rel_elsewhere": float(
-                torch.where(d > 1e-3 * top, 0.0, d).max()) / top,
-            "n_jumps": len(jumps),
-            "jumps": [{"at": idx, "f32": float(g32[tuple(idx)]) / top,
-                       "f64": float(g64[tuple(idx)]) / top}
-                      for idx in jumps[:8]]}
+    k = {"step_rel": rel(r32["grads"], r64["grads"]),
+         "fed_vs_f32_rel": rel(fed, r32["grads"]),
+         "fed_vs_f64_rel": rel(fed, r64["grads"]),
+         "out_grad_rel": float(d.max()) / top,
+         "n_jumps": int((d > 1e-3 * top).sum()),
+         "n_flips": len(flips),
+         "n_flips_unreached": unreached,
+         "flip_arg_rel": arg_rel,
+         "unexplained_rel": float((g32 - g64 - delta).abs().max()) / top,
+         "flips": flips[:8]}
+    k["verdict"] = kink_verdict(k)
+    return k
+
+
+def kink_verdict(k) -> str:
+    """"kink" if the reading ``k`` of :func:`locate_kink` is a loss kink
+    crossed by rounding (the conditions above KINK_ELSEWHERE), else what
+    fails."""
+    if not k["fed_vs_f32_rel"] <= TOL_TRAIN_GRAD:
+        return (f"the backward given float32's output gradient reads "
+                f"{k['fed_vs_f32_rel']:.3e} of the float32 step")
+    if not 0 < k["n_flips"] <= KINK_PIXELS:
+        return f"{k['n_flips']} abs() arguments change sign"
+    if not k["flip_arg_rel"] <= KINK_ARG:
+        return (f"an abs() argument {k['flip_arg_rel']:.3e} of its term's "
+                f"max from 0 changes sign")
+    if not k["unexplained_rel"] <= KINK_ELSEWHERE:
+        return (f"the flips leave {k['unexplained_rel']:.3e} of the output "
+                f"gradient unexplained")
+    return "kink"
 
 
 def worst_parameter(got, want) -> str:
@@ -2474,6 +2570,45 @@ OTHER_GRAD_NETS = (
     ("spectral -l 3 -r 2", dict(network="newfluidnet", levels=3, repeats=2,
                                 r_p="zeros", spectral_conv=True)),
     ("vit (ModelConfig defaults)", dict(network="vit")))
+# the weight seeds each network of the gradient leg is read at
+OTHER_GRAD_SEEDS = (0, 1, 2)
+
+
+def other_gradients(name, fields, seed, x, y, device, H, W):
+    """Phase 11 (e) for one network and weight seed: the train step's
+    parameter gradients against float64 (the step with cuDNN off beside
+    them at seed 0), held to TOL_TRAIN_GRAD; a reading above it passes
+    only where :func:`locate_kink` finds a loss kink crossed by rounding
+    (ROADMAP §3 fault 10)."""
+    t0 = time.perf_counter()
+    legs = ("step", "no_cudnn") if seed == 0 else ("step",)
+    out = {leg: train_gradients(other_model(fields, device, seed, H, W), x,
+                                y, fields["network"], leg) for leg in legs}
+    rel = out["step"][0]
+    beside = (f"; cuDNN off rel={out['no_cudnn'][0]:.3e}" if seed == 0
+              else "")
+    print(f"other models (e): train step {name} seed {seed} {H}x{W} B=2 at "
+          f"default flags: parameter gradients vs float64 rel={rel:.3e} "
+          f"(tol {TOL_TRAIN_GRAD}){beside}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    for leg in legs:
+        print(f"  {leg}: {worst_parameter(out[leg][2], out[leg][1])}")
+    if rel <= TOL_TRAIN_GRAD:
+        return
+    last = {"multiscalenewfluidnet": "nets_0.conv_3",
+            "vit": "vit.Dense_1"}.get(fields["network"], "conv_3")
+    k = locate_kink(other_model(fields, device, seed, H, W), x, y,
+                    fields["network"], last)
+    print(f"  above the bound: {json.dumps(k)}")
+    if k["verdict"] != "kink":
+        raise AssertionError(f"(e) {name} seed {seed}: gradients {rel:.3e}, "
+                             f"not a loss kink: {k['verdict']}")
+    print(f"  {name} seed {seed}: a loss kink crossed by rounding: "
+          f"{k['n_flips']} abs() argument(s) within {k['flip_arg_rel']:.3e} "
+          f"of their term's max from 0 change sign and account for the "
+          f"output gradient's difference but {k['unexplained_rel']:.3e}; "
+          f"the backward given float32's output gradient reads "
+          f"{k['fed_vs_f32_rel']:.3e} (tol {TOL_TRAIN_GRAD})")
 
 
 def other_model(fields, device="cuda", seed=0, H=128, W=506):
@@ -2522,10 +2657,11 @@ def run_other_models(counters, bench_sps, device="cuda", steps=OTHER_STEPS,
     + 1 per step, inference and training no launch;
     (d) the spectral NewFluidNet at ``newfluidnet_spectral``'s widths
     (-l 3 -f 16 -r 2 -pad zeros): a forward against float64 (cuFFT);
-    (e) train-step parameter gradients against float64 at B = 2 (≤
-    TOL_TRAIN_GRAD), with the step with cuDNN off beside them, and the
-    parameter where each error sits: the symmetric flagship, FluidNet,
-    the ensemble, the spectral network and the ViT; no launch;
+    (e) train-step parameter gradients against float64 at B = 2 and
+    weight seeds 0-2 (≤ TOL_TRAIN_GRAD; :func:`other_gradients`), with
+    the step with cuDNN off beside them at seed 0, and the parameter
+    where each error sits: the symmetric flagship, FluidNet, the
+    ensemble, the spectral network and the ViT; no launch;
     (f) one train step with dropout 0.1 (the flagship) from a generator:
     the same seed gives the same loss and masks, another seed another.
     The counts stay out of the kernels line. Leaves the flags as it found
@@ -2675,38 +2811,8 @@ def run_other_models(counters, bench_sps, device="cuda", steps=OTHER_STEPS,
         y = torch.randn(2, 2, H, W, generator=g).to(device)
         _zero(counters)
         for name, fields in OTHER_GRAD_NETS:
-            t0 = time.perf_counter()
-            out = {leg: train_gradients(
-                other_model(fields, device, H=H, W=W), x, y,
-                fields["network"], leg) for leg in ("step", "no_cudnn")}
-            rel = out["step"][0]
-            print(f"other models (e): train step {name} {H}x{W} B=2 at "
-                  f"default flags: parameter gradients vs float64 "
-                  f"rel={rel:.3e} (tol {TOL_TRAIN_GRAD}); cuDNN off "
-                  f"rel={out['no_cudnn'][0]:.3e}, "
-                  f"{time.perf_counter() - t0:.1f} s")
-            for leg in ("step", "no_cudnn"):
-                print(f"  {leg}: {worst_parameter(out[leg][2], out[leg][1])}")
-            if not rel <= TOL_TRAIN_GRAD:
-                # above the bound: the network's backward arithmetic must
-                # hold it when float64 is fed float32's output gradient,
-                # and that gradient may differ only at a few pixels (a
-                # loss kink crossed by rounding, ROADMAP §3 fault 10)
-                last = ("nets_0.conv_3" if fields["network"]
-                        == "multiscalenewfluidnet" else "vit.Dense_1"
-                        if fields["network"] == "vit" else "conv_3")
-                k = locate_kink(other_model(fields, device, H=H, W=W), x, y,
-                                fields["network"], last)
-                print(f"  above the bound: {json.dumps(k)}")
-                if not (k["fed_vs_f32_rel"] <= TOL_TRAIN_GRAD
-                        and k["out_grad_rel_elsewhere"] <= KINK_ELSEWHERE
-                        and 0 < k["n_jumps"] <= KINK_PIXELS):
-                    raise AssertionError(f"(e) {name}: gradients {rel:.3e}")
-                print(f"  {name}: a loss kink crossed by rounding at "
-                      f"{k['n_jumps']} output pixels; the backward given "
-                      f"float32's output gradient reads "
-                      f"{k['fed_vs_f32_rel']:.3e} (tol {TOL_TRAIN_GRAD})")
-            del out
+            for seed in OTHER_GRAD_SEEDS:
+                other_gradients(name, fields, seed, x, y, device, H, W)
             if device == "cuda":
                 torch.cuda.empty_cache()
         _launched(counters, {}, "(e) train steps")
@@ -2737,11 +2843,39 @@ def run_other_models(counters, bench_sps, device="cuda", steps=OTHER_STEPS,
           f"counts kept out of the kernels line)")
 
 
-def main() -> int:
+def run_phase(n: int) -> int:
+    """``--phase n``: builds the kernels, runs phase 3
+    (:func:`run_main_path`) and then phase ``n``."""
+    import bench_torch
+    from pbml_mantle_convection_tpu_torch.ops import _cuda
+    t0 = time.perf_counter()
+    print(f"card: {card_line()}")
+    _cuda.build()
+    _cuda.library()
+    counters = bench_torch.counters()
+    _, sps = run_main_path(counters)
+    globals()[PHASES[n]](counters, sps[128, 506])
+    print(f"phase 3 and phase {n}: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+# the phases ``--phase`` runs after phase 3, by number
+PHASES = {10: "run_drivers", 11: "run_other_models"}
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "H100 (module doc)")
+    ap.add_argument("--phase", type=int, choices=sorted(PHASES),
+                    help="run phase 3 and then this phase alone")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.phase is not None:
+        return run_phase(args.phase)
     import bench_torch
     from pbml_mantle_convection_tpu_torch.ops import _cuda
     from pbml_mantle_convection_tpu_torch.ops.slice_attention import (

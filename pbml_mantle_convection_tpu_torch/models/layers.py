@@ -314,7 +314,8 @@ class SymmetricConv3d(nn.Module):
     def forward(self, x):
         if any(self.pad):
             x = F.pad(x, self.pad)
-        return F.conv3d(x, self.kernel(), self.bias)
+        with float32_convs(x):
+            return F.conv3d(x, self.kernel(), self.bias)
 
 
 # Weight classes of the learned-boundary conv, in the order the kernels
@@ -373,8 +374,7 @@ class BoundaryLearnedConvolution2D(nn.Module):
     bias; with ``use_symm`` each of the 9 is a :class:`SymmetricConv2d`
     without bias. Output size (H + 2(bc_y - 1), W + 2(bc_x - 1)): the
     input's with bc_x = bc_y = 1. ``wgrad_off_cudnn`` takes the 8 slab convs'
-    weight gradients on the card off cuDNN (:func:`conv2d_routed`),
-    ``inner_wgrad_off_cudnn`` the interior conv's."""
+    weight gradients on the card off cuDNN (:func:`conv2d_routed`)."""
 
     def __init__(self, c_i: int, features: int, kernel_size: int,
                  rng: np.random.Generator, bc_x: int = 1, bc_y: int = 1,
@@ -391,7 +391,7 @@ class BoundaryLearnedConvolution2D(nn.Module):
             self.add_module(name, conv)
         self.learnable_bias = nn.Parameter(torch.zeros(features))
         self.bc_x, self.bc_y = bc_x, bc_y
-        self.wgrad_off_cudnn = self.inner_wgrad_off_cudnn = False
+        self.wgrad_off_cudnn = False
 
     def kernels(self):
         """The 9 full OIHW kernels in :data:`BLC_CLASSES` order (a
@@ -400,14 +400,10 @@ class BoundaryLearnedConvolution2D(nn.Module):
 
     def forward(self, x):
         return blc_conv2d(x, self.kernels(), self.learnable_bias,
-                          self.bc_x, self.bc_y, self._band_conv,
-                          self._inner_conv)
+                          self.bc_x, self.bc_y, self._band_conv)
 
     def _band_conv(self, xs, w):
         return conv2d_routed(xs, w, None, self.wgrad_off_cudnn)
-
-    def _inner_conv(self, x, w):
-        return conv2d_routed(x, w, None, self.inner_wgrad_off_cudnn)
 
 
 class GroupNormTorch(nn.GroupNorm):

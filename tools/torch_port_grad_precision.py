@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import os
@@ -97,9 +98,20 @@ def set_route(model, name):
             on = route.startswith("native") and (only is None
                                                  or path in only)
             mod.wgrad_off_cudnn = on
-            if isinstance(mod, BoundaryLearnedConvolution2D):
-                mod.inner_wgrad_off_cudnn = on and route == "native_inner"
+            if (on and route == "native_inner"
+                    and isinstance(mod, BoundaryLearnedConvolution2D)):
+                mod.forward = functools.partial(_inner_routed, mod)
     return model
+
+
+def _inner_routed(mod, x):
+    """The learned-boundary conv ``mod`` with its interior conv's weight
+    gradient off cuDNN as well as its slabs'."""
+    from pbml_mantle_convection_tpu_torch.models.layers import (
+        blc_conv2d, conv2d_routed)
+    return blc_conv2d(x, mod.kernels(), mod.learnable_bias, mod.bc_x,
+                      mod.bc_y, mod._band_conv,
+                      lambda xi, w: conv2d_routed(xi, w, None, True))
 
 
 @contextlib.contextmanager
