@@ -135,18 +135,41 @@ Run from the repository root, with no arguments::
    it); (f) a
    dropout train step repeated from its generator's seed; the counts stay
    out of the kernels line;
-12. prints one JSON line of per-kernel numbers (launches summed over
-   phases 3, 4, 5 and 7; the layer kernels' zero instance, its launches
-   from phase 3c alone, under ``zero_instance``, the top-level counts
-   being the learned instance's), the card line again, and last ``{"ok": true,
-   "device": {...}}``.
+12. runs the parallel paths and bfloat16 at 128×506 on a process group
+   of one NCCL rank: (a) ``cli/benchmark.py --what rollout --sharded`` at
+   B = 1 and 4 (4 + 1 + 1 + 0 launches per simulation-step; sim-steps/s
+   beside phase 3's steps/s), and 4 simulations of ``make_batch_sharded``
+   bitwise equal to standalone B = 1 runs; (b) the coupled rollout with
+   the process group (dt all-reduced, the energy kernel with that dt:
+   4B + B + 0 + 1 per step) bitwise equal to the batched rollout; (c)
+   ``physics_attention_sharded`` at the serving shape (8 heads, D = 16,
+   G = 32, N = 64,768) against the unsharded kernel path
+   (``TOL_SHARDED_ATTN``, one ``slice_pool`` and one ``slice_deslice``
+   launch per call), timed with and without its two all-reduces, and the
+   same over two gloo ranks sharing the card (processes of this script,
+   ``--attention-rank``), N split in halves; (d) a
+   ``torch.distributed.checkpoint`` round trip of the flagship's train
+   state; (e) ``--what inference -net transolver_structured --dtype
+   bfloat16`` at the serving configuration (5 + 5 launches per forward;
+   its stream function against float32 within ``TOL_BF16_PSI``), the
+   zero-padded flagship's bfloat16 inference on the fused executor (4 + 1
+   launches per forward, float32 kernels on the bfloat16 weights; its
+   stream function against the float32 module within
+   ``TOL_BF16_EXECUTOR``), the
+   flagship's bfloat16 ``--raw-module`` inference and ``--what train``
+   (B = 8), and the bfloat16 flagship rollout refused with JAX's reason;
+13. prints one JSON line of per-kernel numbers (launches summed over
+   phases 3, 4, 5, 7 and 12 (a)-(b); the layer kernels' zero instance,
+   its launches from phase 3c alone, under ``zero_instance``, the
+   top-level counts being the learned instance's), the card line again,
+   and last ``{"ok": true, "device": {...}}``.
 
-``--phase 10`` or ``--phase 11`` builds the kernels and runs phase 3 and
-then that phase alone (the drivers, or the other models, whose steps/s it
-prints beside phase 3's), with their launch checks; it prints no result
-line::
+``--phase 10``, ``--phase 11`` or ``--phase 12`` builds the kernels and
+runs phase 3 and then that phase alone (the drivers, the other models or
+the parallel paths, whose steps/s it prints beside phase 3's), with their
+launch checks; it prints no result line::
 
-    python3 chip_smoke.py --phase 11
+    python3 chip_smoke.py --phase 12
 
 Any failed phase raises, so the script exits non-zero and prints no result
 line; so does a machine without a CUDA device or a directory without the
@@ -2843,6 +2866,404 @@ def run_other_models(counters, bench_sps, device="cuda", steps=OTHER_STEPS,
           f"counts kept out of the kernels line)")
 
 
+# phase 12: sharded rollouts, sequence-parallel attention, distributed
+# checkpoints, bfloat16
+PAR_STEPS = 500          # the --sharded CLI's steps per call
+PAR_CHECK_STEPS = 20     # steps of the bitwise checks
+PAR_B = 4
+# sharded Physics-Attention against the unsharded kernel path at the
+# serving shape, max |diff| / max |unsharded|: the same float32 sums, the
+# pooled ones added across ranks in another order
+TOL_SHARDED_ATTN = 1e-5
+# the bfloat16 serving Transolver's stream function (the last block's
+# output) against the float32 kernel path, relative to max |psi|: bfloat16
+# keeps 8 bits (2^-8 = 3.9e-3 per rounding) through 5 blocks (2.3e-2 and
+# 2.4e-2 on the CPU at 32x48 and 64x128); u and v, central differences of
+# psi much smaller than psi's bfloat16 ulp, are printed, not bounded
+TOL_BF16_PSI = 5e-2
+# the zero-padded flagship's bfloat16 inference on the executor (float32
+# kernels on the bfloat16 weights) against the float32 module on the same
+# weights, relative to max |psi|: the layer kernels' bound (TOL); the
+# bfloat16 module's psi is printed beside it (6.8e-2 off the executor's
+# on the CPU at 128x506; the executor 1.0e-5 off the float32 module)
+TOL_BF16_EXECUTOR = 1e-4
+SERVING_ATTN = dict(heads=8, dim_head=16, slice_num=32)
+
+
+def serving_attention(device, seed=0, N=128 * 506):
+    """The serving Transolver's Physics-Attention at its width (8 heads,
+    D = 16, G = 32; irregular-mesh projections) and a seeded (1, N, 128)
+    input."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.models.transolver import (
+        PhysicsAttentionIrregularMesh)
+    a = SERVING_ATTN
+    m = PhysicsAttentionIrregularMesh(
+        a["heads"] * a["dim_head"], np.random.default_rng(seed),
+        **a).to(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(1, N, a["heads"] * a["dim_head"], generator=g,
+                    device=device)
+    return m, x
+
+
+def attention_rank(rank, world, port, out, device="cuda", N=128 * 506):
+    """One rank of phase 12 (c)'s two gloo ranks sharing the card: its
+    half of the points through ``physics_attention_sharded`` (one
+    ``slice_pool`` and one ``slice_deslice`` launch), the halves gathered;
+    rank 0 writes the error against the unsharded kernel path and the
+    launch counts to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
+        slice_deslice, slice_pool)
+    from pbml_mantle_convection_tpu_torch.parallel.mesh import (
+        gather_rows, shard_batch)
+    from pbml_mantle_convection_tpu_torch.parallel.sequence import (
+        physics_attention_sharded)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        m, x = serving_attention(device, N=N)
+        a = SERVING_ATTN
+        local = shard_batch(dist.group.WORLD, x.transpose(0, 1)
+                            ).transpose(0, 1)
+        with torch.no_grad():
+            physics_attention_sharded(m, local, dist.group.WORLD,
+                                      a["heads"], a["dim_head"])
+            slice_pool.launches = slice_deslice.launches = 0
+            y = physics_attention_sharded(m, local, dist.group.WORLD,
+                                          a["heads"], a["dim_head"])
+            launches = [slice_pool.launches, slice_deslice.launches]
+            y = gather_rows(dist.group.WORLD, y, dim=1)
+            ref = m(x)
+        err, rel = rel_err(y, ref)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump({"max_abs_err": err, "rel": rel,
+                           "launches": launches,
+                           "n_local": int(local.shape[1])}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_attention_ranks(world=2, device="cuda", N=128 * 506):
+    """Phase 12 (c)'s gloo ranks as processes of this script; returns
+    rank 0's record."""
+    import socket
+    import tempfile
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank0.json")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--attention-rank",
+             str(r), str(world), str(port), out, device, str(N)])
+            for r in range(world)]
+        try:
+            codes = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if codes != [0] * world:
+            raise AssertionError(f"attention ranks exited {codes}")
+        with open(out) as f:
+            return json.load(f)
+
+
+def check_bf16_zero_executor(counters, device, H, W, iters, grid_argv):
+    """Phase 12 (e): ``--what inference -pad zeros --dtype bfloat16``
+    runs the fused executor as JAX's CLI does, in float32 on the bfloat16
+    weights (``FastNewFluidNet.float32_of``): 4 ``layer_stack`` + 1
+    ``trunk`` launches per forward, timed beside the float32 CLI run;
+    then its stream function against the float32 module on the same
+    weights (``TOL_BF16_EXECUTOR``), and the bfloat16 module's printed
+    beside it."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.models.fast_path import (
+        FastNewFluidNet)
+    from pbml_mantle_convection_tpu_torch.models.registry import (
+        ModelConfig, build_model)
+    fwd = iters + 1                          # the CLI's warm-up pass
+    ms = {}
+    for dt in ("float32", "bfloat16"):
+        _zero(counters)
+        ms[dt] = echo_benchmark(["--what", "inference", "-pad", "zeros",
+                                 "--dtype", dt, "--iters", str(iters)]
+                                + grid_argv, device)["value"]
+        _launched(counters, {"layer_stack": 4 * fwd, "trunk": fwd},
+                  f"(e) -pad zeros inference in {dt}")
+    # the CLI's model (its defaults: -l 5 -f 16 -r 6 -k 5)
+    zm = build_model(ModelConfig(network="newfluidnet", levels=5, c_h=16,
+                                 repeats=6, kernel=5, r_p="zeros",
+                                 loss_type="curl", p_pred=False, H=H, W=W,
+                                 dtype=torch.bfloat16), device=device)
+    x = transolver_input(H, W, device).reshape(1, H, W, -1).to(
+        torch.bfloat16)
+    psi = {}
+    with torch.no_grad():
+        ex = FastNewFluidNet.float32_of(zm, H, W)
+        psi["executor"] = ex.psi(x[0].float().permute(2, 0, 1)
+                                 .contiguous())[0]
+        for name, m, xm in (("float32", ex.m, x.float()),
+                            ("bfloat16", zm, x)):
+            hook = m.conv_3.register_forward_hook(
+                lambda mod, inp, o, name=name: psi.__setitem__(
+                    name, o[0, 0].float()))
+            m(xm)
+            hook.remove()
+    err, rel = rel_err(psi["executor"], psi["float32"])
+    rel16 = rel_err(psi["bfloat16"], psi["executor"])[1]
+    print(f"parallel (e) bf16 -pad zeros inference through the executor: "
+          f"{ms['bfloat16']} ms per forward (float32 {ms['float32']} ms, "
+          f"same call), 4 + 1 launches per forward; psi rel {rel:.3e} (max "
+          f"abs {err:.3e}, tol {TOL_BF16_EXECUTOR}) against the float32 "
+          f"module on the same weights, the bfloat16 module's rel "
+          f"{rel16:.3e}")
+    if not rel <= TOL_BF16_EXECUTOR:
+        raise AssertionError(f"(e) bf16 zero executor psi rel {rel}")
+
+
+def run_parallel(counters, bench_sps, device="cuda", steps=PAR_STEPS,
+                 H=128, W=506, iters=20):
+    """Phase 12, at 128×506 (module doc). Returns the kernel launches of
+    its main-path runs, (a) and (b), by kernel."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from pbml_mantle_convection_tpu_torch.models.registry import (
+        ModelConfig, build_model)
+    from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
+        slice_deslice, slice_pool)
+    from pbml_mantle_convection_tpu_torch.parallel.rollout import (
+        make_batch_sharded)
+    from pbml_mantle_convection_tpu_torch.parallel.sequence import (
+        physics_attention_sharded)
+    from pbml_mantle_convection_tpu_torch.train.train_step import (
+        TrainStepConfig, make_train_step)
+    from pbml_mantle_convection_tpu_torch.train.trainer import adam_l2
+    from pbml_mantle_convection_tpu_torch.utils.checkpoint import (
+        restore_checkpoint_distributed, save_checkpoint_distributed)
+    from pbml_mantle_convection_tpu_torch.sim.engine import SimEngine
+    from pbml_mantle_convection_tpu_torch.sim.stepper import TimeStepper
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = {**counters, "slice_pool": slice_pool,
+                "slice_deslice": slice_deslice}
+    launch = {k: 0 for k in counters}
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    # the NCCL world of one: the CLI's mesh is this group
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl" if cuda else "gloo", init_method=f"tcp://localhost:{port}",
+        rank=0, world_size=1,
+        **({"device_id": torch.device(device, 0)} if cuda else {}))
+    group = dist.group.WORLD
+    try:
+        # (a) --sharded at B = 1 and 4, each simulation 4 + 1 + 1 + 0
+        for B in (1, PAR_B):
+            _zero(counters)
+            rec = echo_benchmark(["--what", "rollout", "--sharded", "--batch",
+                                  str(B), "--steps", str(steps), "--H",
+                                  str(H), "--W", str(W)], device)
+            sim_steps = 2 * B * steps                # warm-up + timed
+            want = rollout_launches(1, sim_steps)
+            got = _launched(counters, want, f"(a) --sharded B={B}")
+            for k in launch:
+                launch[k] += got[k]
+            print(f"parallel (a) --sharded B={B}: {rec['value']} "
+                  f"sim-steps/s over {rec['n_devices']} "
+                  f"{dist.get_backend()} rank "
+                  f"({rec['rollout_steps_per_s']} rollout steps/s), phase "
+                  f"3's main path {bench_sps:.1f} steps/s "
+                  f"({rec['value'] / bench_sps:.3f} of it); launches "
+                  f"{ {k: got[k] / sim_steps for k in want} } per "
+                  f"simulation-step")
+        model, fast, _, _ = flagship(H, W, device)
+        from pbml_mantle_convection_tpu_torch.cli.benchmark import (
+            initial_temperature)
+        from pbml_mantle_convection_tpu_torch.constants import SimParams
+        from pbml_mantle_convection_tpu_torch.sim.grid import Grid
+        grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
+
+        def engine(g=None):
+            return SimEngine(TimeStepper(grid, SimParams(3.0, 1e8, 10.0),
+                                         fast, cn_max=0.99, device=device),
+                             process_group=g)
+
+        T0 = initial_temperature(grid, PAR_B)
+        K = PAR_CHECK_STEPS
+        out = make_batch_sharded(engine(), K, group)(T0)
+        eng = engine()
+        same = []
+        for b in range(PAR_B):
+            st, tr = eng.multi_step(eng.init_state(T0[b:b + 1]), K)
+            same.append(bool(torch.equal(out[0][b], st.T[0]))
+                        and bool(torch.equal(out[5][b], st.t)))
+        print(f"parallel (a) per-simulation rollout, {PAR_B} simulations x "
+              f"{K} steps: final T and t bitwise equal to standalone B = 1 "
+              f"multi_step runs: {same}")
+        if not all(same):
+            raise AssertionError("(a) sharded rollout differs from B = 1")
+
+        # (b) the coupled rollout over the group (one dt all-reduced per
+        # step; the energy kernel with the given dt) vs the batched one
+        _zero(counters)
+        ec = engine(group)
+        sc, tc = ec.multi_step(ec.init_state(T0), K)
+        got = _launched(counters, rollout_launches(PAR_B, K),
+                        "(b) coupled rollout")
+        for k in launch:
+            launch[k] += got[k]
+        eb = engine()
+        sb, tb = eb.multi_step(eb.init_state(T0), K)
+        same_T = bool(torch.equal(sc.T, sb.T))
+        same_dt = bool(torch.equal(tc.dt, tb.dt))
+        print(f"parallel (b) coupled B={PAR_B} over the "
+              f"{dist.get_backend()} group, {K} steps ({4 * PAR_B} + "
+              f"{PAR_B} + 0 + 1 launches per step): final T bitwise equal to the batched rollout: {same_T}, "
+              f"dt trace: {same_dt}, mean-T trace rel "
+              f"{rel_err(tc.mean_T, tb.mean_T)[1]:.3e}")
+        if not (same_T and same_dt):
+            raise AssertionError("(b) coupled rollout differs from batched")
+
+        # (c) sequence-parallel attention at the serving shape
+        m, x = serving_attention(device, N=H * W)
+        a = SERVING_ATTN
+        with torch.no_grad():
+            ref = m(x)
+            _zero(counters)
+            y = physics_attention_sharded(m, x, group, a["heads"],
+                                          a["dim_head"])
+            got = _launched(counters, {"slice_pool": 1, "slice_deslice": 1},
+                            "(c) sharded attention")
+            sharded_ms = cuda_ms(lambda: physics_attention_sharded(
+                m, x, group, a["heads"], a["dim_head"]))
+            alone_ms = cuda_ms(lambda: physics_attention_sharded(
+                m, x, None, a["heads"], a["dim_head"]))
+            num = torch.zeros(1, a["heads"], a["slice_num"], a["dim_head"],
+                              device=device)
+            den = torch.zeros(1, a["heads"], a["slice_num"], device=device)
+            ar_ms = cuda_ms(lambda: (dist.all_reduce(num, group=group),
+                                     dist.all_reduce(den, group=group)))
+            module_ms = cuda_ms(lambda: m(x))
+        err, rel = rel_err(y, ref)
+        print(f"parallel (c) physics_attention_sharded at N={x.shape[1]}, "
+              f"8 heads, D=16, G=32, 1 {dist.get_backend()} rank: rel "
+              f"{rel:.3e} (max abs {err:.3e}, tol {TOL_SHARDED_ATTN}) "
+              f"against the unsharded "
+              f"kernel path, launches {got}; {sharded_ms:.4f} ms with the "
+              f"two all-reduces, {alone_ms:.4f} ms without, the module "
+              f"{module_ms:.4f} ms; the two all-reduces alone "
+              f"{ar_ms:.4f} ms")
+        if not rel <= TOL_SHARDED_ATTN:
+            raise AssertionError(f"(c) sharded attention rel {rel}")
+        r2 = run_attention_ranks(2, device, H * W)
+        print(f"parallel (c) two gloo ranks sharing the card, "
+              f"{r2['n_local']} points each: rel {r2['rel']:.3e} (max abs "
+              f"{r2['max_abs_err']:.3e}), launches per rank per call "
+              f"(slice_pool, slice_deslice) {r2['launches']}")
+        if not (r2["rel"] <= TOL_SHARDED_ATTN and r2["launches"] == [1, 1]):
+            raise AssertionError(f"(c) two ranks: {r2}")
+
+        # (d) distributed checkpoint of the flagship's train state
+        opt = adam_l2(model.parameters(), 1e-3)
+        cfg = TrainStepConfig(loss_scale=True, loss_derivative=True,
+                              loss_type="curl")
+        gen = torch.Generator(device=device).manual_seed(4)
+        make_train_step(model, opt, cfg)(
+            {"x": torch.rand(1, H, W, 7, generator=gen, device=device),
+             "y": torch.randn(1, 2, H, W, generator=gen, device=device)})
+        state = {"model": model.state_dict(), "optimizer": opt.state_dict(),
+                 "epoch": 1}
+        fresh = flagship(H, W, device)[0]
+        opt2 = adam_l2(fresh.parameters(), 1e-3)
+        make_train_step(fresh, opt2, cfg)(
+            {"x": torch.zeros(1, H, W, 7, device=device),
+             "y": torch.zeros(1, 2, H, W, device=device)})
+        target = {"model": fresh.state_dict(),
+                  "optimizer": opt2.state_dict(), "epoch": 0}
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            save_checkpoint_distributed(os.path.join(tmp, "ck"), state,
+                                        group)
+            t1 = time.perf_counter()
+            got = restore_checkpoint_distributed(os.path.join(tmp, "ck"),
+                                                 target, group)
+            t2 = time.perf_counter()
+        pairs = list(zip(model.state_dict().values(),
+                         got["model"].values()))
+        for k, s in opt.state_dict()["state"].items():
+            for n, v in s.items():
+                pairs.append((v, got["optimizer"]["state"][k][n]))
+        same = all(torch.equal(u, v) for u, v in pairs)
+        print(f"parallel (d) distributed checkpoint of the flagship's train "
+              f"state ({len(pairs)} tensors): save {t1 - t0:.2f} s, restore "
+              f"{t2 - t1:.2f} s into a fresh state, equal: {same}, epoch "
+              f"{got['epoch']}")
+        if not (same and got["epoch"] == 1):
+            raise AssertionError("(d) checkpoint round trip")
+    finally:
+        dist.destroy_process_group()
+
+    # (e) bfloat16
+    _zero(counters)
+    rec = echo_benchmark(["--what", "inference", "-net",
+                          "transolver_structured", "--dtype", "bfloat16",
+                          "--iters", str(iters), "--H", str(H), "--W",
+                          str(W)], device)
+    fwd = iters + 1                          # the CLI's warm-up pass
+    _launched(counters, {"slice_pool": 5 * fwd, "slice_deslice": 5 * fwd},
+              "(e) bf16 transolver")
+    psi = {}
+    for dt in (torch.float32, torch.bfloat16):
+        net = build_model(ModelConfig(network="transolver_structured", H=H,
+                                      W=W, dtype=dt), device=device)
+        hook = net.blocks_4.register_forward_hook(
+            lambda mod, inp, o, dt=dt: psi.__setitem__(dt, o.float()))
+        with torch.no_grad():
+            psi[dt, "uv"] = net(transolver_input(H, W, device).to(dt))
+        hook.remove()
+    err, rel = rel_err(psi[torch.bfloat16], psi[torch.float32])
+    uv = [rel_err(b.float(), a)[1] for a, b in
+          zip(psi[torch.float32, "uv"][:2], psi[torch.bfloat16, "uv"][:2])]
+    print(f"parallel (e) bf16 transolver_structured serving: {rec['value']} "
+          f"ms per forward (float32: 9.16-9.20 ms, PERF.md), 5 + 5 slice "
+          f"launches per forward; psi rel {rel:.3e} (tol {TOL_BF16_PSI}) "
+          f"against float32, u {uv[0]:.3e}, v {uv[1]:.3e}")
+    if not rel <= TOL_BF16_PSI:
+        raise AssertionError(f"(e) bf16 transolver psi rel {rel}")
+    grid_argv = ["--H", str(H), "--W", str(W)]
+    check_bf16_zero_executor(counters, device, H, W, iters, grid_argv)
+    _zero(counters)
+    echo_benchmark(["--what", "inference", "--raw-module", "--dtype",
+                    "bfloat16", "--iters", str(iters)] + grid_argv, device)
+    echo_train_benchmark(["--dtype", "bfloat16", "--batch", "8", "--iters",
+                          str(max(1, iters // 2))] + grid_argv, device)
+    _launched(counters, {}, "(e) bf16 module and train")
+    try:
+        echo_benchmark(["--what", "rollout", "--dtype", "bfloat16"]
+                       + grid_argv, device)
+    except TypeError as e:
+        print(f"parallel (e) bf16 rollout refused: {e}")
+    else:
+        raise AssertionError("(e) the bf16 flagship rollout ran")
+    print(f"parallel: {time.perf_counter() - t_phase:.1f} s")
+    return launch
+
+
 def run_phase(n: int) -> int:
     """``--phase n``: builds the kernels, runs phase 3
     (:func:`run_main_path`) and then phase ``n``."""
@@ -2860,7 +3281,7 @@ def run_phase(n: int) -> int:
 
 
 # the phases ``--phase`` runs after phase 3, by number
-PHASES = {10: "run_drivers", 11: "run_other_models"}
+PHASES = {10: "run_drivers", 11: "run_other_models", 12: "run_parallel"}
 
 
 def main(argv=None) -> int:
@@ -2869,7 +3290,14 @@ def main(argv=None) -> int:
                                  "H100 (module doc)")
     ap.add_argument("--phase", type=int, choices=sorted(PHASES),
                     help="run phase 3 and then this phase alone")
+    ap.add_argument("--attention-rank", nargs=6, metavar=(
+        "RANK", "WORLD", "PORT", "OUT", "DEVICE", "N"),
+        help="one of phase 12's gloo ranks (started by the phase itself)")
     args = ap.parse_args(argv)
+    if args.attention_rank:
+        r, w, port, out, device, n = args.attention_rank
+        attention_rank(int(r), int(w), int(port), out, device, int(n))
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2940,6 +3368,8 @@ def main(argv=None) -> int:
     print(f"unet: {time.perf_counter() - t0:.1f} s")
     run_drivers(counters, bench_sps[128, 506])
     run_other_models(counters, bench_sps[128, 506])
+    for k, n in run_parallel(counters, bench_sps[128, 506]).items():
+        launch[k] += n
 
     floor = launch_floor(1, ENERGY_BLOCK)
     print(f"launch floor: an empty kernel of one block of {ENERGY_BLOCK} "

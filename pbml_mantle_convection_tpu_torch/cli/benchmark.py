@@ -28,6 +28,29 @@ the roll-forward); the weights come from seed 0::
     python -m pbml_mantle_convection_tpu_torch.cli.benchmark \\
         --what inference -net transolver_structured
 
+``--sharded`` times the per-simulation sharded rollout
+(``parallel/rollout.py``): B simulations (``--batch`` if above 1, else the
+world size), B / world per rank, each at B = 1 through the fused
+executor with its own dt; one warm-up call from initial fields of another
+phase (0.11), then the timed call; the metric is
+``sharded_rollout_{H}x{W}`` in simulation-steps/s. The world is
+torchrun's (``parallel/mesh.py::maybe_initialize_distributed``: NCCL on
+the card, gloo with ``--device cpu``), or one process. Under torchrun
+``--what train`` splits its batch over the ranks, whose gradients are
+all-reduced (``make_train_step(..., process_group=...)``). Rank 0 prints.
+
+``--dtype`` is float32 (default), float64 or bfloat16. In bfloat16 the
+port runs where the JAX CLI runs and refuses, with JAX's reason and
+before any work, where it fails: the NewFluidNet fused executor with
+learned padding (``--what inference`` without ``--raw-module``, and
+``--what rollout``) and the zero-padded rollout
+(``models/fast_path.py::BF16_LEARNED``, ``BF16_ZERO_ROLLOUT``). The
+zero-padded bfloat16 inference runs the fused executor, as JAX's does,
+and returns float32 as JAX's does (``FastNewFluidNet.float32_of``: the
+kernels over float32 copies of the bfloat16 weights); a bfloat16
+rollout's energy step runs in float32 (``sim/engine.py``); the bfloat16
+Transolvers run the bfloat16 slice kernels.
+
 It runs on the card; only ``--device cpu`` runs it elsewhere, and with no
 card and no such flag it fails. It turns TF32 off for cuDNN convolutions
 and matrix products (float32 throughout, as the metrics are defined) and
@@ -42,20 +65,26 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..constants import SimParams
-from ..models.fast_path import FastNewFluidNet, unsupported_reason
+from ..models.fast_path import (BF16_LEARNED, BF16_ZERO_ROLLOUT,
+                                FastNewFluidNet, unsupported_reason)
 from ..models.registry import ModelConfig, build_model
 from ..sim.engine import SimEngine
 from ..sim.grid import Grid
 from ..sim.stepper import NO_ROLLOUT, TimeStepper
 from ..models.layers import float32_convs
+from ..parallel.mesh import (local_device, make_mesh, mesh_rank, mesh_size,
+                             maybe_initialize_distributed, shard_batch)
+from ..parallel.rollout import make_batch_sharded
 from ..train.train_step import (TrainStepConfig, make_loss_fn,
                                 make_train_step)
 from ..train.trainer import adam_l2
 from ..utils.card import card_info
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16}
 
 
 def build_parser():
@@ -96,7 +125,9 @@ def build_parser():
                    help="--what train: recompute the forward in the "
                         "backward (torch.utils.checkpoint)")
     p.add_argument("--sharded", action="store_true",
-                   help="multi-card rollout (not ported)")
+                   help="per-simulation sharded rollout over the world's "
+                        "ranks (torchrun; one process alone: one card), "
+                        "each simulation at B = 1 on the fused executor")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
     return p
@@ -109,13 +140,30 @@ ROLLOUT_NETS = ("newfluidnet", "fluidnet", "multiscalenewfluidnet", "vit",
                 "unet", "iunet")
 
 
-def initial_temperature(grid: Grid, batch: int = 1) -> np.ndarray:
+def initial_temperature(grid: Grid, batch: int = 1,
+                        phase: float = 0.0) -> np.ndarray:
     """(B, H, W) initial fields of the rollout as the JAX CLI builds them
-    (JAX ``cli/benchmark.py:199-206``): simulation b's phase shifted by
-    0.37·b, so simulation 0's is ``bench.py``'s."""
+    (JAX ``cli/benchmark.py:199-206, 225-228``): simulation b's phase
+    shifted by 0.37·b + ``phase``, so simulation 0's is ``bench.py``'s at
+    phase 0."""
     return np.stack([np.clip(1.0 - grid.yc
-                             + 0.05 * np.sin(6.28 * grid.xc + 0.37 * b),
+                             + 0.05 * np.sin(6.28 * grid.xc + 0.37 * b
+                                             + phase),
                              0.0, 1.0) for b in range(batch)])
+
+
+def bf16_refusal(args) -> str | None:
+    """JAX's reason where its CLI fails in bfloat16 on its fused executor
+    (a NewFluidNet with learned or zero padding and k = 5), else None."""
+    if (args.dtype != "bfloat16" or args.network != "newfluidnet"
+            or args.r_p not in ("learned", "zeros") or args.kernel != 5):
+        return None
+    if args.what == "rollout":
+        return BF16_LEARNED if args.r_p == "learned" else BF16_ZERO_ROLLOUT
+    if args.what == "inference" and not args.raw_module \
+            and args.r_p == "learned":
+        return BF16_LEARNED
+    return None
 
 
 def inference_input(network: str, H: int, W: int, c_i: int, dtype,
@@ -212,17 +260,24 @@ def train_profile(model, opt, cfg, step, batch, wall_ms, steps,
         "top_kernels_ms_per_step": {k[:90]: round(v, 3) for k, v in top}}
 
 
-def train_benchmark(args, model, c_i, dtype, device) -> tuple[float, dict]:
+def train_benchmark(args, model, c_i, dtype, device,
+                    mesh=None) -> tuple[float, dict]:
     """``--what train``: one warm-up step, then ``--iters`` steps ending
     in a synchronize; with ``--profile``, then :func:`train_profile`.
+    Over a ``mesh`` each rank steps on its rows of the batch and the
+    gradients are all-reduced (JAX: the step over its device mesh).
     Returns (ms per step, the JSON record)."""
     B, H, W = args.batch, args.H, args.W
+    if B % mesh_size(mesh):
+        raise SystemExit(f"--batch {B} not divisible by "
+                         f"{mesh_size(mesh)} devices")
     cfg = TrainStepConfig(net=args.network, p_pred=False, loss_scale=True,
                           loss_derivative=True, loss_type="curl",
                           remat=args.remat, roll_forward=args.roll_forward)
     opt = adam_l2(model.parameters(), 1e-3)
-    step = make_train_step(model, opt, cfg)
-    batch = train_batch(args.network, B, H, W, c_i, dtype, device)
+    step = make_train_step(model, opt, cfg, process_group=mesh)
+    batch = shard_batch(mesh, train_batch(args.network, B, H, W, c_i, dtype,
+                                          device))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     br = step(batch)
@@ -237,7 +292,7 @@ def train_benchmark(args, model, c_i, dtype, device) -> tuple[float, dict]:
     rec = {
         "metric": f"train_step_{args.network}_{H}x{W}_B{B}{rf}",
         "value": round(dt * 1e3, 3), "unit": "ms",
-        "samples_per_s": round(B / dt, 2), "n_devices": 1,
+        "samples_per_s": round(B / dt, 2), "n_devices": mesh_size(mesh),
         "loss": float(br.total),
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None)}
@@ -247,20 +302,59 @@ def train_benchmark(args, model, c_i, dtype, device) -> tuple[float, dict]:
     return dt * 1e3, rec
 
 
+def sharded_benchmark(args, engine, grid, mesh, name, flags) -> float:
+    """``--sharded``: B simulations over the mesh's ranks, each at B = 1
+    with its own dt (``parallel/rollout.py``); one warm-up call from
+    initial fields of phase 0.11, then the timed one. Returns
+    simulation-steps/s."""
+    n_dev = mesh_size(mesh)
+    B = args.batch if args.batch > 1 else n_dev
+    if B % n_dev:
+        raise SystemExit(f"--batch {B} not divisible by {n_dev} devices")
+    f = make_batch_sharded(engine, args.steps, mesh)
+    f(initial_temperature(grid, B, 0.11))
+    sync(engine.device)
+    T0 = initial_temperature(grid, B)
+    t0 = time.perf_counter()
+    out = f(T0)
+    sync(engine.device)
+    sps = args.steps / (time.perf_counter() - t0)
+    if not bool(torch.isfinite(out[0]).all()):
+        raise RuntimeError("sharded rollout: T is not finite")
+    if mesh_rank(mesh) == 0:
+        print(json.dumps({
+            "metric": f"sharded_rollout_{args.H}x{args.W}",
+            "value": round(sps * B, 2), "unit": "sim_steps/s",
+            "n_devices": n_dev, "batch": B,
+            "rollout_steps_per_s": round(sps, 2), "device": name,
+            **flags}))
+    return sps * B
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.batch is None:
         args.batch = 8 if args.what == "train" else 1
-    if args.sharded:
-        raise NotImplementedError("not ported yet: --sharded (ROADMAP "
-                                  "queue 1 item 7)")
     if args.what == "rollout" and args.network in NO_ROLLOUT:
         raise ValueError(NO_ROLLOUT[args.network])
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    reason = bf16_refusal(args)
+    if reason is not None:
+        raise TypeError(reason)
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("benchmark: no CUDA device (pass --device cpu to "
                          "run on the CPU)")
+    # torchrun's world, or one process
+    owns_world = maybe_initialize_distributed(args.device)
+    try:
+        return _benchmark(args, local_device(args.device))
+    finally:
+        if owns_world:
+            dist.destroy_process_group()
+
+
+def _benchmark(args, device):
     dtype = _DTYPES[args.dtype]
+    mesh = make_mesh()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     flags = {"tf32_conv": torch.backends.cudnn.allow_tf32,
@@ -273,20 +367,29 @@ def main(argv=None):
     model = build_model(mc, device=device)
     grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
     params = SimParams(3.0, 1e8, 10.0)
+    # the executor in float32, and in bfloat16 where JAX's runs
+    # (bf16_refusal leaves it the zero-padded inference)
     fast = (not args.raw_module and args.network == "newfluidnet"
-            and dtype == torch.float32 and unsupported_reason(model) is None)
+            and dtype in (torch.float32, torch.bfloat16)
+            and unsupported_reason(model) is None)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
 
     if args.what == "train":
-        ms, rec = train_benchmark(args, model, mc.channels[0], dtype, device)
-        print(json.dumps({**rec, **card_info(device), **flags}))
+        ms, rec = train_benchmark(args, model, mc.channels[0], dtype, device,
+                                  mesh)
+        if mesh_rank(mesh) == 0:
+            print(json.dumps({**rec, **card_info(device), **flags}))
         return ms
 
     if args.what == "inference":
         x = inference_input(args.network, H, W, mc.channels[0], dtype,
                             device)
-        fwd = FastNewFluidNet(model, H, W) if fast else model
+        fwd = model
+        if fast and dtype == torch.bfloat16:
+            fwd, x = FastNewFluidNet.float32_of(model, H, W), x.float()
+        elif fast:
+            fwd = FastNewFluidNet(model, H, W)
         with torch.no_grad():
             fwd(x)
             sync(device)
@@ -308,6 +411,8 @@ def main(argv=None):
     engine = SimEngine(TimeStepper(grid, params, apply_fn, cn_max=0.99,
                                    dtype=dtype, device=device,
                                    net=args.network))
+    if args.sharded:
+        return sharded_benchmark(args, engine, grid, mesh, name, flags)
     state = engine.init_state(initial_temperature(grid, args.batch))
     state, _ = engine.multi_step(state, min(args.steps, 20))   # warm-up
     sync(device)

@@ -26,6 +26,7 @@ function). The constructor raises on anything else.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
@@ -37,6 +38,21 @@ from ..ops.merge_kernel import trunk, trunk_weights
 from ..physics.viscosity import fk_viscosity_clipped
 from .fluidnet import NewFluidNet
 from .layers import BoundaryLearnedConvolution2D, fluid_layer_groups
+
+
+# the JAX CLI's failures in bfloat16 on its fused executor (the port's
+# kernels of it are float32): where JAX fails, the port refuses, and why
+BF16_LEARNED = (
+    "the fused executor in bfloat16 with learned padding: JAX's builds the "
+    "boundary bands from float32 resize matrices and bfloat16 slabs and "
+    "fails (fast_path.py::_bands_from_slabs, a TypeError: "
+    "'lax.conv_general_dilated requires arguments to have the same "
+    "dtypes, got float32, bfloat16')")
+BF16_ZERO_ROLLOUT = (
+    "a bfloat16 rollout through the fused executor with zero padding: "
+    "JAX's step returns T, u, v and t in float32 from a bfloat16 state, "
+    "and its lax.scan refuses the changed carry (a TypeError: 'scan body "
+    "function carry input and carry output must have equal types')")
 
 
 def unsupported_reason(m: NewFluidNet) -> Optional[str]:
@@ -152,6 +168,17 @@ class FastNewFluidNet:
             raise ValueError("FastNewFluidNet runs one simulation (B=1)")
         psi = self.psi(x[0].permute(2, 0, 1).contiguous())
         return self.m.head(psi[None])
+
+    @classmethod
+    def float32_of(cls, model: NewFluidNet, H: int, W: int):
+        """The executor of a bfloat16 ``model`` as JAX's runs it: JAX's
+        executor takes the bfloat16 weights, and its float32 constants
+        promote what follows them, so it returns float32 (its CLI's
+        ``--what inference -pad zeros --dtype bfloat16``). The kernels
+        here are float32 throughout: the executor of a float32 copy of
+        the weights (every bfloat16 value is a float32 one). Feed it the
+        input in float32; it returns float32."""
+        return cls(copy.deepcopy(model).float(), H, W)
 
     def bind_input_assembly(self, static, params) -> None:
         """Fix the five input channels that are constants of the

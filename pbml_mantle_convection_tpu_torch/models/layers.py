@@ -413,6 +413,27 @@ class GroupNormTorch(nn.GroupNorm):
         super().__init__(num_groups, num_channels, eps=1e-5)
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computed in its parameters' type and returned in
+    the input's: Flax's ``nn.LayerNorm`` with a ``dtype`` (statistics and
+    the affine map in float32, the result cast to the input's type)."""
+
+    def forward(self, x):
+        return super().forward(x.to(self.weight.dtype)).to(x.dtype)
+
+
+def keep_float32(module: nn.Module, types, dtype) -> None:
+    """Flax's built-in layers (``nn.Dense``, ``nn.LayerNorm``) keep
+    float32 parameters (their ``param_dtype``) under a 16-bit ``dtype``
+    and cast them to it at use, where the package's own layers store them
+    in the model's dtype: with a 16-bit ``dtype`` the parameters of the
+    submodules of ``types`` go back to float32."""
+    if dtype in (torch.bfloat16, torch.float16):
+        for m in module.modules():
+            if isinstance(m, types):
+                m.float()
+
+
 def fluid_layer_groups(c_o: int) -> int:
     """GroupNorm groups of a FluidLayer: c_o / min(4, c_o)
     (pytorch_networks_convae.py:788)."""

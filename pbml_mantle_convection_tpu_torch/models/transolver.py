@@ -17,7 +17,11 @@ formulation that the JAX model trains on.
 Weights are drawn from ``np.random.default_rng(seed)``: Dense layers
 trunc-normal(0.02) cut at ±2σ with zero bias (the reference's
 ``_init_weights``), the 2-D projections torch's conv default, the 3-D
-projections trunc-normal(0.02), temperature 0.5.
+projections trunc-normal(0.02), temperature 0.5. Under a 16-bit dtype
+(the JAX CLI's ``--dtype bfloat16``) every parameter takes it but the
+LayerNorms', which stay float32 as Flax's ``nn.LayerNorm`` keeps them;
+they normalise in float32 and return the input's type. On the card the
+bfloat16 model runs the bfloat16 instances of both slice kernels.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ import torch.nn.functional as F
 
 from ..ops.curl import curl_head_valid
 from ..ops.slice_attention import slice_attention
-from .layers import Conv2dTorch, float32_convs, get_activation
+from .layers import (Conv2dTorch, LayerNorm, float32_convs, get_activation,
+                     keep_float32)
 
 
 def trunc_normal(rng: np.random.Generator, shape, std: float = 0.02):
@@ -224,7 +229,7 @@ class TransolverBlock(nn.Module):
         super().__init__()
         self.last_layer = last_layer
         dim_head = hidden_dim // num_heads
-        self.ln_1 = nn.LayerNorm(hidden_dim, eps=1e-5)
+        self.ln_1 = LayerNorm(hidden_dim, eps=1e-5)
         if structured:
             self.Attn = PhysicsAttentionStructuredMesh2D(
                 hidden_dim, H, W, rng, heads=num_heads, dim_head=dim_head,
@@ -233,11 +238,11 @@ class TransolverBlock(nn.Module):
             self.Attn = PhysicsAttentionIrregularMesh(
                 hidden_dim, rng, heads=num_heads, dim_head=dim_head,
                 slice_num=slice_num)
-        self.ln_2 = nn.LayerNorm(hidden_dim, eps=1e-5)
+        self.ln_2 = LayerNorm(hidden_dim, eps=1e-5)
         self.mlp = TransolverMLP(hidden_dim, hidden_dim * mlp_ratio,
                                  hidden_dim, rng, n_layers=0, res=False)
         if last_layer:
-            self.ln_3 = nn.LayerNorm(hidden_dim, eps=1e-5)
+            self.ln_3 = LayerNorm(hidden_dim, eps=1e-5)
             self.mlp2 = Dense(hidden_dim, out_dim, rng)
 
     def forward(self, fx):
@@ -295,6 +300,7 @@ class TransolverStructured2D(nn.Module):
         self.n_layers, self.ref = n_layers, ref
         self._pos = {}      # unified_pos features by (dtype, device)
         self.to(device=device or "cuda", dtype=dtype)
+        keep_float32(self, LayerNorm, dtype)
 
     def pos_features(self, data):
         key = (data.dtype, data.device)
@@ -339,6 +345,7 @@ class TransolverIrregular(nn.Module):
                 last_layer=i == n_layers - 1, out_dim=out_dim,
                 slice_num=slice_num, structured=False))
         self.to(device=device or "cuda", dtype=dtype)
+        keep_float32(self, LayerNorm, dtype)
 
     def forward(self, data):
         fx = self.preprocess(data)

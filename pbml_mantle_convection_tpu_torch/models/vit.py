@@ -14,7 +14,11 @@ library attention kernel, so the float32 path stays comparable.
 Weights are drawn from ``np.random.default_rng(seed)``: Linear weights
 U(-1/√in, 1/√in) with zero biases (Flax's Dense with torch's fan-in
 bound), the position embedding and cls token N(0, 1); the model is moved
-to ``device`` (default: the card).
+to ``device`` (default: the card). Under a 16-bit dtype the LayerNorm and
+Linear parameters stay float32, as the Flax built-ins keep them
+(``param_dtype``): a Linear casts its weights to the input's type at use,
+a LayerNorm computes in float32 and casts its result; the position
+embedding and cls token take the dtype.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .layers import LayerNorm, keep_float32
 
 
 class _Linear(nn.Module):
@@ -43,11 +49,12 @@ class _Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
 
 
-def _layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=1e-5)
+def _layer_norm(dim: int) -> LayerNorm:
+    return LayerNorm(dim, eps=1e-5)
 
 
 class FeedForward(nn.Module):
@@ -181,6 +188,7 @@ class ViTField(nn.Module):
                        heads, mlp_dim, np.random.default_rng(seed),
                        channels=channels)
         self.to(device=device or "cuda", dtype=dtype)
+        keep_float32(self, (LayerNorm, _Linear), dtype)
 
     def forward(self, img):
         H, W = self.image_size

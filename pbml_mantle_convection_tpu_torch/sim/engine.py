@@ -34,6 +34,26 @@ momentum skip counts steps on the host (one read of ``n_step`` per
 ``multi_step``). A stepper with ``net`` "unet" or "iunet" outside GAIA
 runs :meth:`SimEngine.step_unet` instead: the network advances u, v and T
 together, with dt from the driver's CFL rule, and no energy step runs.
+
+With a ``process_group`` the batch is split over its ranks and advances
+as the single-process batch does (JAX: ``jit`` of ``multi_step`` over a
+batch-sharded state): every rank's surrogate step is local, the CFL dt
+of each rank's simulations is reduced over the ranks with one
+``all_reduce(MIN)`` per step (dt is a decreasing function of the largest
+velocity, so the minimum is the dt of the whole batch) and the energy
+step takes that shared dt, a device tensor (no host read). The fused
+epilogue forms its dt inside its kernel, so this rollout takes the
+energy-kernel path at any local batch: 4B ``layer_stack`` + B ``trunk``
++ 0 + 1 ``advect_diffuse_step_fused`` per step for the flagship. Core
+cooling reduces its CMB flux over the ranks too (a second all-reduce),
+and the mean-T trace is reduced over the global batch once per
+:meth:`SimEngine.multi_step`. The PT solve of the GAIA and ML_PRE modes
+checks its own residual, so those modes refuse a group. Without a group
+nothing changes.
+
+A bfloat16 state (the JAX CLI's ``--dtype bfloat16``) takes its energy
+step in float32, the kernel's narrowest type, from the same bfloat16
+values, and the new T and dt are rounded back to bfloat16.
 """
 
 from __future__ import annotations
@@ -42,12 +62,13 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..constants import COORD_SCALE
 from ..ops.advect_kernel import advect_diffuse_step_fused
 from ..ops.epilogue_kernel import curl_advect_epilogue, epilogue_consts
 from ..ops.stencils import stamp_temperature_bc
-from ..physics.advection import viscous_dissipation
+from ..physics.advection import stability_dt, viscous_dissipation
 from ..physics.viscosity import fk_viscosity
 from .stepper import TimeStepper
 
@@ -102,9 +123,13 @@ class SimEngine:
     def __init__(self, stepper: TimeStepper, mode: str = "ML_STOKES",
                  intervene_ts: int = 1, radioactive_decay: bool = False,
                  core_cool: bool = False, Di: float = 0.0,
-                 stokes_fn: Optional[Callable] = None):
+                 stokes_fn: Optional[Callable] = None,
+                 process_group: Optional[dist.ProcessGroup] = None):
         if mode not in MODES:
             raise ValueError(f"mode={mode!r}: one of {MODES}")
+        if process_group is not None and mode in ("GAIA", "ML_PRE"):
+            raise ValueError(f"mode={mode!r} over a process group: the PT "
+                             "solve checks each rank's own residual")
         if mode in ("GAIA", "ML_PRE") and stokes_fn is None:
             raise ValueError(f"mode={mode!r} requires stokes_fn")
         if mode != "GAIA" and stepper.apply_fn is None:
@@ -116,6 +141,14 @@ class SimEngine:
         self.radioactive_decay, self.core_cool = radioactive_decay, core_cool
         self.Di, self.stokes_fn = Di, stokes_fn
         self.device, self.dtype = stepper.device, stepper.dtype
+        self.group = process_group
+        self._dx_min = stepper._metrics.dx_min
+        # the energy kernel's types are float32 and float64: a bfloat16
+        # state steps on float32 copies of its bfloat16 metrics
+        self._metrics = stepper._metrics
+        if self.dtype == torch.bfloat16:
+            self._metrics = type(stepper._metrics)(
+                *(m.float() for m in stepper._metrics))
         # the momentum skip reads n_step (host counter in multi_step)
         self._skip = mode == "GAIA" and intervene_ts > 1
         # GAIA's FK viscosity is unclipped; depth 1 - yc on the device
@@ -128,6 +161,7 @@ class SimEngine:
         self._epi = None
         fn = stepper.apply_fn
         if (mode in ("ML", "ML_STOKES") and Di == 0.0 and not core_cool
+                and process_group is None
                 and hasattr(fn, "apply_psi_from_T") and not fn.m.blurr):
             self._epi = epilogue_consts(stepper._metrics, fn.m.a_bound,
                                         stepper.cn_max)
@@ -177,6 +211,43 @@ class SimEngine:
                        u, v, V, self.stepper._metrics))
         return src
 
+    def _shared_dt(self, u, v):
+        """The CFL dt of this rank's simulations reduced to the minimum
+        over the group (a 0-d device tensor); None without a group (the
+        energy step forms its own)."""
+        if self.group is None:
+            return None
+        dt = stability_dt(u[..., 1:-1, 1:-1], v[..., 1:-1, 1:-1],
+                          self._dx_min, self.stepper.cn_max)
+        dist.all_reduce(dt, op=dist.ReduceOp.MIN, group=self.group)
+        return dt
+
+    def _group_mean(self, x):
+        """The mean over the group of a per-rank mean (equal local
+        batches: the global batch's mean); ``x`` without a group."""
+        if self.group is None:
+            return x
+        x = x.clone()
+        dist.all_reduce(x, group=self.group)
+        return x / dist.get_world_size(self.group)
+
+    def _energy_step(self, u, v, T, src, dt=None):
+        """``advect_diffuse_step_fused`` with the engine's metrics; a
+        bfloat16 state steps on float32 copies and the new T and dt are
+        rounded back to bfloat16."""
+        kw = dict(cn_max=self.stepper.cn_max, core_cool=self.core_cool)
+        if T.dtype != torch.bfloat16:
+            return advect_diffuse_step_fused(u, v, T, src, self._metrics,
+                                             dt=dt, **kw)
+
+        def f32(t):
+            return t.float() if torch.is_tensor(t) else t
+
+        T_new, dt = advect_diffuse_step_fused(
+            f32(u), f32(v), f32(T), f32(src), self._metrics, dt=f32(dt),
+            **kw)
+        return T_new.to(T.dtype), dt.to(T.dtype)
+
     @torch.no_grad()
     def step(self, state: SimState) -> SimState:
         """One coupled step."""
@@ -189,6 +260,8 @@ class SimEngine:
         s = self.stepper.scaler
         u_prev, v_prev = state.u / s, state.v / s
         dt = self.stepper.unet_dt(u_prev, v_prev)
+        if self.group is not None:
+            dist.all_reduce(dt, op=dist.ReduceOp.MIN, group=self.group)
         p_prev = state.p if self.stepper.unet_p_pred else None
         T_new, u, v, p, V = self.stepper.step_unet(state.T, u_prev, v_prev,
                                                    dt, p_prev=p_prev)
@@ -231,17 +304,15 @@ class SimEngine:
                 p = state.p
 
         src = self._energy_sources(state, T, u, v, V)
-        T_new, dt = advect_diffuse_step_fused(
-            u, v, T, src, self.stepper._metrics, cn_max=self.stepper.cn_max,
-            core_cool=self.core_cool)
+        T_new, dt = self._energy_step(u, v, T, src, self._shared_dt(u, v))
 
         T_core = state.T_core
         if self.core_cool:
             # the CMB temperature falls with the mean upward conductive
             # flux between the CMB (row 0) and the first cell centre, dy/2
             # above it, scaled by Core/rhoCpVar (prepare_gaia_ini.py:70-71)
-            q_cmb = torch.mean(
-                (state.T_core - T_new[..., 1, :]) / (0.5 * self.grid.dy))
+            q_cmb = self._group_mean(torch.mean(
+                (state.T_core - T_new[..., 1, :]) / (0.5 * self.grid.dy)))
             T_core = T_core - dt * CORE_RHOCP_VAR * q_cmb
             T_new[..., 0, :] = T_core
 
@@ -262,8 +333,8 @@ class SimEngine:
             mean_T.append(state.T.mean())
             ts.append(state.t)
             dts.append(state.dt)
-        return state, RolloutTrace(torch.stack(mean_T), torch.stack(ts),
-                                   torch.stack(dts))
+        return state, RolloutTrace(self._group_mean(torch.stack(mean_T)),
+                                   torch.stack(ts), torch.stack(dts))
 
     def rollout(self, state: SimState, n_steps: int,
                 snapshot_every: Optional[int] = None):

@@ -24,7 +24,9 @@ and rank:
   ``pos_embedding`` and ``cls_token``) as it is.
 
 It is the inverse of the JAX package's ``utils/torch_convert.py`` on the
-FluidNet family.
+FluidNet family. Each leaf keeps its type: a bfloat16 leaf (numpy's
+``bfloat16`` from ``ml_dtypes``, which torch cannot read directly) crosses
+as its bits and becomes a ``torch.bfloat16`` tensor.
 """
 
 from __future__ import annotations
@@ -69,5 +71,12 @@ def from_jax_params(tree: Mapping) -> dict:
     for path, leaf in _flatten(tree):
         parts = [p for p in path if p != "GroupNorm_0"]
         parts[-1], a = _leaf(parts[-1], np.asarray(leaf))
-        out[".".join(parts)] = torch.tensor(np.ascontiguousarray(a))
+        out[".".join(parts)] = _tensor(np.ascontiguousarray(a))
     return out
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.tensor(a)

@@ -2,7 +2,7 @@
 inference of the Transolvers and NewFluidNet, the NewFluidNet rollout
 at B = 1 and B > 1,
 the JAX CLI's metric names and inputs (and the first rollout step's dt
-from them), TF32 off, and the choices that are not ported yet."""
+from them), TF32 off, and the choices JAX's CLI fails on too."""
 
 import json
 
@@ -187,17 +187,22 @@ def test_metric_name_matches_the_jax_cli(capsys, monkeypatch):
 @pytest.mark.parametrize("argv,exc,match", [
     (["--what", "train", "-net", "halfnewfluidnet"], ValueError,
      "raw .* head"),
-    (["--what", "rollout", "--sharded"], NotImplementedError,
-     "ROADMAP queue 1 item 7"),
+    (["--what", "rollout", "--dtype", "bfloat16"], TypeError,
+     "got float32, bfloat16"),
     (["--what", "rollout", "-net", "transolver_structured"], ValueError,
      "Transolver reads"),
     (["--what", "rollout", "-net", "halfnewfluidnet"], ValueError,
      "raw .* head"),
+    (["--what", "rollout", "--dtype", "bfloat16", "-pad", "zeros"],
+     TypeError, "carry input and carry output must have equal types"),
+    (["--what", "rollout", "--dtype", "bfloat16", "--sharded"], TypeError,
+     "got float32, bfloat16"),
 ])
 def test_unported_choices_raise(argv, exc, match):
-    """What the port still refuses: ``--sharded`` (queue 1 item 7), and
-    what JAX's CLI fails on too (a HalfNewFluidNet's raw head in a train
-    step or a rollout, a Transolver in the stepper), with that reason."""
+    """What JAX's CLI fails on, refused with its reason: a
+    HalfNewFluidNet's raw head in a train step or a rollout, a Transolver
+    in the stepper, the bfloat16 rollouts of the fused executor (learned
+    padding, sharded or not, and zero padding)."""
     with pytest.raises(exc, match=match):
         main(argv + ["--device", "cpu", "--H", "8", "--W", "12"])
 
