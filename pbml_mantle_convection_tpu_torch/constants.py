@@ -59,6 +59,35 @@ def velocity_scaler(raq, fkt, fkp):
     )
 
 
+def _scaler(x, raq, fkt, fkp):
+    """The scaling law's value(s) in ``x``'s kind: a float, an array, or
+    a tensor of ``x``'s dtype and device."""
+    s = velocity_scaler(raq, fkt, fkp)
+    if np.ndim(s) == 0:
+        return float(s)
+    if isinstance(x, torch.Tensor):
+        return torch.as_tensor(s, dtype=x.dtype, device=x.device)
+    return s
+
+
+def scale_var(x, raq, fkt, fkp, var):
+    """Scale a variable by the velocity scaling law (reference:
+    scaler.py:4-36): ``uprev`` / ``vprev`` are divided by it; p, V and T
+    pass through unchanged. ``x`` is a numpy array or a tensor, the
+    parameters floats or arrays that broadcast against it; nothing is
+    changed in place."""
+    if var in ("uprev", "vprev"):
+        return x / _scaler(x, raq, fkt, fkp)
+    return x
+
+
+def unscale_var(x, raq, fkt, fkp, var):
+    """Inverse of :func:`scale_var` (reference: scaler.py:39-71)."""
+    if var in ("uprev", "vprev"):
+        return x * _scaler(x, raq, fkt, fkp)
+    return x
+
+
 def nondim_raq(raq):
     """raq → [0, 1] (reference: datasetio.py:124-126)."""
     return (raq - RAQ_MIN) / (RAQ_MAX - RAQ_MIN)

@@ -7,7 +7,8 @@
 // the staging step). Two instances (template parameter ZERO): the
 // learned-boundary conv (interior and boundary ring, 9 weight classes)
 // and the zero-padded SAME conv (one weight class; the staged window
-// reads 0 outside the field).
+// reads 0 outside the field). Each of them once per activation (template
+// parameter ACT): the seven of the JAX package's models/layers.py.
 //
 // Implicit GEMM: M = output pixels, N = c_o (8 or 16 columns), K = 25 taps
 // x 8-channel chunks. mma.sync.aligned.m16n8k8 TF32 with the 3xTF32 split
@@ -132,6 +133,42 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
+// The activation codes of the C entry points (ops/branch_kernel.py::
+// ACT_CODES): 0 applies none, 1-7 the Flax functions of the JAX
+// package's models/layers.py::_ACTIVATIONS in float32. Every one has
+// act(0) = 0, so a padding of zeros stays zeros after it.
+enum Act : int {
+  kActNone = 0,
+  kGelu = 1,
+  kSelu = 2,
+  kElu = 3,
+  kSilu = 4,
+  kRelu = 5,
+  kTanh = 6,
+  kSine = 7,
+};
+
+template <int ACT>
+__device__ __forceinline__ float activate(float v) {
+  if constexpr (ACT == kGelu) {
+    return gelu_erf(v);
+  } else if constexpr (ACT == kSelu) {   // jax.nn.selu
+    return 1.0507009873554805f * (v > 0.f ? v : 1.6732632423543772f *
+                                                    expm1f(v));
+  } else if constexpr (ACT == kElu) {    // jax.nn.elu, alpha 1
+    return v > 0.f ? v : expm1f(v);
+  } else if constexpr (ACT == kSilu) {
+    return v / (1.f + expf(-v));
+  } else if constexpr (ACT == kRelu) {
+    return v > 0.f ? v : 0.f;
+  } else if constexpr (ACT == kTanh) {
+    return tanhf(v);
+  } else {
+    static_assert(ACT == kSine, "unknown activation");
+    return sinf(30.f * v);               // sine30; never __sinf
+  }
+}
+
 // Stage 8 channel values of one pixel as its record: for t = 0..3,
 // [hi(t), hi(t+4), lo(t), lo(t+4)], so lane t of an A fragment reads its
 // four values for one pixel with one 16-byte load.
@@ -167,6 +204,7 @@ struct LayerArgs {
   int n_levels;
   int c_in, c_o, groups;  // the input's GroupNorm has the same groups
   int gn_out, act_out;    // and the same activation as the output's
+                          // (act_out: apply the instance's ACT)
 };
 
 // How the trunk assembles its input chunks (see trunk.cu).
@@ -190,7 +228,7 @@ struct TrunkSrc {
 // stays 0: the padding pads the activated field.
 constexpr int kPixPerThread = (kHaloPix + kThreads - 1) / kThreads;
 
-template <bool ZERO>
+template <bool ZERO, int ACT>
 __device__ inline void stage_planar(float* s, const float* base, int nvalid,
                                     const float* tr, int act, int H, int W,
                                     int hr0, int hc0, int hh, int hw) {
@@ -219,18 +257,18 @@ __device__ inline void stage_planar(float* s, const float* base, int nvalid,
       for (int k = 0; k < 8; ++k) {
         if (k >= nvalid) continue;
         const float t = (v[u][k] - tr[3 * k + 1]) * tr[3 * k] + tr[3 * k + 2];
-        v[u][k] = act ? gelu_erf(t) : t;
+        v[u][k] = act ? activate<ACT>(t) : t;
       }
     }
     put_record(s + p * kRec, v[u]);
   }
 }
 
-template <bool ZERO>
+template <bool ZERO, int ACT>
 __device__ inline void stage_plain(float* s, const LayerArgs& a,
                                    const LayerLevel& L, const float* s_tr,
                                    int q, int hr0, int hc0, int hh, int hw) {
-  stage_planar<ZERO>(s, L.x + (size_t)q * 8 * L.H * L.W,
+  stage_planar<ZERO, ACT>(s, L.x + (size_t)q * 8 * L.H * L.W,
                      min(8, a.c_in - q * 8),
                      L.in_stats != nullptr ? s_tr + 24 * q : nullptr,
                      a.act_out, L.H, L.W, hr0, hc0, hh, hw);
@@ -323,10 +361,10 @@ __device__ inline void stage_trunk(float* s, float* up, const TrunkSrc& t,
     return;
   }
   if (ci0 < t.c_h)
-    stage_planar<ZERO>(s, t.b0 + (size_t)ci0 * HW, min(8, t.c_h - ci0),
+    stage_planar<ZERO, kGelu>(s, t.b0 + (size_t)ci0 * HW, min(8, t.c_h - ci0),
                        nullptr, 0, H, W, hr0, hc0, hh, hw);
   else
-    stage_planar<ZERO>(s, t.x + (size_t)(ci0 - c_branch) * HW,
+    stage_planar<ZERO, kGelu>(s, t.x + (size_t)(ci0 - c_branch) * HW,
                        min(8, t.c_x - (ci0 - c_branch)), nullptr, 0, H, W,
                        hr0, hc0, hh, hw);
 }
@@ -334,10 +372,11 @@ __device__ inline void stage_trunk(float* s, float* up, const TrunkSrc& t,
 // The layer kernel. NJ: output-channel tiles of 8 (c_o 1..8 -> 1, 16 -> 2).
 // TRUNK: assemble the input with stage_trunk instead of stage_plain.
 // ZERO: the zero-padded instance (see decode_item).
+// ACT: the activation (Act) that a.act_out switches on.
 // Blocks per SM: 3 for the stacks (<= 80 registers; the third block
 // overlaps its staging with the others' MMAs), 2 for the trunk, whose
 // upsampling buffer and 127 registers leave room for no more.
-template <int NJ, bool TRUNK, bool ZERO>
+template <int NJ, bool TRUNK, bool ZERO, int ACT>
 __global__ void __launch_bounds__(kThreads, TRUNK ? 2 : 3)
 blc_fused_kernel(const __grid_constant__ LayerArgs a,
                  const __grid_constant__ TrunkSrc tsrc) {
@@ -408,7 +447,7 @@ blc_fused_kernel(const __grid_constant__ LayerArgs a,
     if constexpr (TRUNK)
       stage_trunk<ZERO>(s_a, s_up, tsrc, L, q, hr0, hc0, hh, hw);
     else
-      stage_plain<ZERO>(s_a, a, L, s_tr, q, hr0, hc0, hh, hw);
+      stage_plain<ZERO, ACT>(s_a, a, L, s_tr, q, hr0, hc0, hh, hw);
     cp_async_wait_all();
     __syncthreads();
 #pragma unroll 1
@@ -482,7 +521,7 @@ blc_fused_kernel(const __grid_constant__ LayerArgs a,
             sum[j][p] += (double)v;
             sq[j][p] += (double)v * v;
           } else if (a.act_out) {
-            v = gelu_erf(v);
+            v = activate<ACT>(v);
           }
           L.y[co * HW + (size_t)r * W + c] = v;
         }
@@ -584,43 +623,67 @@ inline size_t layer_smem_bytes(int nj, bool trunk) {
                           (trunk ? 8 * kUpBuf : 0));
 }
 
-template <int NJ, bool TRUNK, bool ZERO>
+template <int NJ, bool TRUNK, bool ZERO, int ACT>
 cudaError_t launch_layer_nj(const LayerArgs& a, const TrunkSrc& t,
                             int blocks, cudaStream_t stream) {
   static bool attr = false;
   const size_t smem = layer_smem_bytes(NJ, TRUNK);
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
-        blc_fused_kernel<NJ, TRUNK, ZERO>,
+        blc_fused_kernel<NJ, TRUNK, ZERO, ACT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     attr = true;
   }
-  blc_fused_kernel<NJ, TRUNK, ZERO><<<blocks, kThreads, smem, stream>>>(a,
-                                                                       t);
+  blc_fused_kernel<NJ, TRUNK, ZERO, ACT>
+      <<<blocks, kThreads, smem, stream>>>(a, t);
   return cudaGetLastError();
 }
 
-template <bool TRUNK, bool ZERO>
+template <bool TRUNK, bool ZERO, int ACT>
 cudaError_t launch_layer_pad(const LayerArgs& a, const TrunkSrc& t,
                              cudaStream_t stream) {
   int blocks = 0;
   for (int l = 0; l < a.n_levels; ++l)
     blocks = a.lv[l].start + n_items(a.lv[l].H, a.lv[l].W, ZERO);
   if (a.c_o > 8)
-    return launch_layer_nj<2, TRUNK, ZERO>(a, t, blocks, stream);
-  return launch_layer_nj<1, TRUNK, ZERO>(a, t, blocks, stream);
+    return launch_layer_nj<2, TRUNK, ZERO, ACT>(a, t, blocks, stream);
+  return launch_layer_nj<1, TRUNK, ZERO, ACT>(a, t, blocks, stream);
 }
 
-// zero: the zero-padded instance, else the learned-boundary one
+template <bool TRUNK, int ACT>
+cudaError_t launch_layer_act(const LayerArgs& a, const TrunkSrc& t,
+                             bool zero, cudaStream_t stream) {
+  return zero ? launch_layer_pad<TRUNK, true, ACT>(a, t, stream)
+              : launch_layer_pad<TRUNK, false, ACT>(a, t, stream);
+}
+
+inline bool valid_act(int act) { return act >= kActNone && act <= kSine; }
+
+// zero: the zero-padded instance, else the learned-boundary one; act: the
+// activation code, which a.act_out switches on (kActNone runs the GELU
+// instance with a.act_out off). The trunk's layer always ends in
+// GroupNorm, so its activation is gn_apply_kernel's alone: one instance.
 template <bool TRUNK>
 cudaError_t launch_layer(const LayerArgs& a, const TrunkSrc& t, bool zero,
-                         cudaStream_t stream) {
-  return zero ? launch_layer_pad<TRUNK, true>(a, t, stream)
-              : launch_layer_pad<TRUNK, false>(a, t, stream);
+                         int act, cudaStream_t stream) {
+  if constexpr (TRUNK) {
+    return launch_layer_act<true, kGelu>(a, t, zero, stream);
+  } else {
+    switch (act) {
+      case kSelu: return launch_layer_act<false, kSelu>(a, t, zero, stream);
+      case kElu: return launch_layer_act<false, kElu>(a, t, zero, stream);
+      case kSilu: return launch_layer_act<false, kSilu>(a, t, zero, stream);
+      case kRelu: return launch_layer_act<false, kRelu>(a, t, zero, stream);
+      case kTanh: return launch_layer_act<false, kTanh>(a, t, zero, stream);
+      case kSine: return launch_layer_act<false, kSine>(a, t, zero, stream);
+      default: return launch_layer_act<false, kGelu>(a, t, zero, stream);
+    }
+  }
 }
 
-// The pass after a stack's last GroupNorm layer: y = act(GN(y)) in place,
+// The pass after a stack's last GroupNorm layer: y = act(GN(y)) in place
+// (act the template parameter ACT, switched on by a.act),
 // and optionally the successive VALID 2x2 pools of the result (the next
 // pyramid levels' inputs, odd sizes floor). One block per 16x16 tile of
 // one channel of one field.
@@ -646,6 +709,7 @@ __host__ __device__ inline int apply_blocks(int H, int W, int c_o) {
          ((W + kApplyTile - 1) / kApplyTile);
 }
 
+template <int ACT>
 __global__ void __launch_bounds__(kApplyTile* kApplyTile)
 gn_apply_kernel(const __grid_constant__ ApplyArgs a) {
   int lvl = 0;
@@ -669,7 +733,7 @@ gn_apply_kernel(const __grid_constant__ ApplyArgs a) {
       const int gi = ch / (a.c_o / a.groups);
       v = (v - L.stats[2 * gi]) * (L.stats[2 * gi + 1] * L.scale[ch]) +
           L.shift[ch];
-      if (a.act) v = gelu_erf(v);
+      if (a.act) v = activate<ACT>(v);
       L.y[at] = v;
     }
   }
@@ -696,12 +760,28 @@ gn_apply_kernel(const __grid_constant__ ApplyArgs a) {
   }
 }
 
-inline cudaError_t launch_apply(const ApplyArgs& a, cudaStream_t stream) {
+template <int ACT>
+cudaError_t launch_apply_act(const ApplyArgs& a, int blocks,
+                             cudaStream_t stream) {
+  gn_apply_kernel<ACT><<<blocks, kApplyTile * kApplyTile, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// act: the activation code (kActNone: the GELU instance with a.act off)
+inline cudaError_t launch_apply(const ApplyArgs& a, int act,
+                                cudaStream_t stream) {
   int blocks = 0;
   for (int l = 0; l < a.n_levels; ++l)
     blocks = a.lv[l].start + apply_blocks(a.lv[l].H, a.lv[l].W, a.c_o);
-  gn_apply_kernel<<<blocks, kApplyTile * kApplyTile, 0, stream>>>(a);
-  return cudaGetLastError();
+  switch (act) {
+    case kSelu: return launch_apply_act<kSelu>(a, blocks, stream);
+    case kElu: return launch_apply_act<kElu>(a, blocks, stream);
+    case kSilu: return launch_apply_act<kSilu>(a, blocks, stream);
+    case kRelu: return launch_apply_act<kRelu>(a, blocks, stream);
+    case kTanh: return launch_apply_act<kTanh>(a, blocks, stream);
+    case kSine: return launch_apply_act<kSine>(a, blocks, stream);
+    default: return launch_apply_act<kGelu>(a, blocks, stream);
+  }
 }
 
 }  // namespace

@@ -2,9 +2,11 @@
 // five pyramid levels at once.
 //
 // Replaces the TPU kernel pbml_mantle_convection_tpu/ops/branch_kernel.py::
-// _stack_kernel (built by LayerStack), both of its instances. Per layer:
-// a 5x5 conv, then bias, GroupNorm over the whole field (eps 1e-5),
-// exact-erf GELU. learned=True: the learned-boundary conv, whose weight
+// _stack_kernel (built by LayerStack), every instance of it. Per layer:
+// a 5x5 conv, then bias, GroupNorm over the whole field (eps 1e-5), and
+// the activation `act`: exact-erf GELU or any other of the seven of the
+// JAX package's models/layers.py (blc_layer.cuh::activate, the template
+// parameter ACT of each kernel). learned=True: the learned-boundary conv, whose weight
 // set and input window depend on where the output pixel lies (the
 // interior `conv`, the 4 edge and 4 corner convs of the learned padding,
 // with the reference's row flip: output rows 0-1 read input rows
@@ -23,20 +25,21 @@
 //   corner, each with its weight class and window origin — so the ring
 //   runs on the tensor cores in the same launch. The block stages its
 //   input halo channels-last in shared memory, already split into TF32
-//   hi/lo parts, applying the previous layer's GroupNorm and GELU on load;
+//   hi/lo parts, applying the previous layer's GroupNorm and activation
+//   on load;
 //   runs m16n8k8 TF32 mma.sync three times per product (3xTF32, float32
 //   accuracy); adds the bias; writes the raw field and per-block (sum,
 //   sum of squares) in double. The last block of a field (a self-resetting
 //   ticket counter) adds the partial sums in block order and writes each
 //   group's (mean, rstd): no float atomics, the same bits every call.
-// - gn_apply_kernel: after a stack's last GroupNorm layer, y = GELU(GN(y))
+// - gn_apply_kernel: after a stack's last GroupNorm layer, y = act(GN(y))
 //   in place, and for the stem the four successive 2x2 pools (the pyramid
 //   inputs) from the same tile.
 // - The five branch stacks share each launch: layer r of every level is
 //   one grid (level 0's items first), so the small levels (8x31 .. 64x253)
 //   fill the SMs beside level 0 instead of running as latency-bound chains.
 // Launches per stack call: R layer launches + 1 apply pass (GroupNorm) or
-// R (merge 2: bias + GELU in the epilogue; merge 3: bias only), + 1 for the
+// R (merge 2: bias + act in the epilogue; merge 3: bias only), + 1 for the
 // optional pool of the input. Staging is single-buffered: each SM holds 3
 // blocks (60 KB of shared memory, <= 80 registers a thread), whose
 // staging and MMA phases overlap one another.
@@ -98,7 +101,8 @@ int pmc_work_items(int H, int W, int zero_pad) {
 // receives the (i+1)-th successive 2x2 pool of the output; with pool_out
 // non-null (L == 1), the 2x2 pool of the input. zero_pad: the layers are
 // zero-padded SAME convs with one weight class, else learned-boundary
-// convs with nine.
+// convs with nine. act: the activation code after each layer
+// (blc_layer.cuh::Act; 0 applies none).
 int pmc_layer_stacks(int L, const void* const* xs, void* const* ys,
                      void* const* scratch, const int* hw,
                      const void* const* frags, const void* const* bias,
@@ -106,14 +110,14 @@ int pmc_layer_stacks(int L, const void* const* xs, void* const* ys,
                      float* stats, double* partial, int partial_stride,
                      int* counters, void* const* pyr, int n_pyr,
                      float* pool_out, int c_in, int c_o, int R, int groups,
-                     int use_gn, int use_act, int zero_pad,
+                     int use_gn, int act, int zero_pad,
                      void* stream_ptr) {
   using namespace pmc;
   const bool zero = zero_pad != 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (L < 1 || L > kMaxLevels || R < 1 || c_in < 1 || c_o < 1 ||
       c_o > kMaxCo || n_pyr < 0 || n_pyr > kMaxPyramid ||
-      ((n_pyr > 0 || pool_out != nullptr) && L != 1))
+      ((n_pyr > 0 || pool_out != nullptr) && L != 1) || !valid_act(act))
     return cudaErrorInvalidValue;
   if (use_gn && (groups < 1 || groups > c_o || c_o % groups))
     return cudaErrorInvalidValue;
@@ -146,7 +150,7 @@ int pmc_layer_stacks(int L, const void* const* xs, void* const* ys,
     a.c_o = c_o;
     a.groups = use_gn ? groups : 1;
     a.gn_out = use_gn;
-    a.act_out = use_act;
+    a.act_out = act != kActNone;
     int start = 0;
     for (int l = 0; l < L; ++l) {
       LayerLevel& v = a.lv[l];
@@ -167,7 +171,8 @@ int pmc_layer_stacks(int L, const void* const* xs, void* const* ys,
       v.start = start;
       start += n_items(v.H, v.W, zero);
     }
-    const cudaError_t err = launch_layer<false>(a, TrunkSrc{}, zero, stream);
+    const cudaError_t err =
+        launch_layer<false>(a, TrunkSrc{}, zero, act, stream);
     if (err != cudaSuccess) return err;
     w_off += frag_floats(ci, c_o, zero);
   }
@@ -176,7 +181,7 @@ int pmc_layer_stacks(int L, const void* const* xs, void* const* ys,
     a.n_levels = L;
     a.c_o = c_o;
     a.groups = use_gn ? groups : 1;
-    a.act = use_act;
+    a.act = act != kActNone;
     int start = 0;
     for (int l = 0; l < L; ++l) {
       ApplyLevel& v = a.lv[l];
@@ -193,7 +198,7 @@ int pmc_layer_stacks(int L, const void* const* xs, void* const* ys,
       v.start = start;
       start += apply_blocks(v.H, v.W, c_o);
     }
-    const cudaError_t err = launch_apply(a, stream);
+    const cudaError_t err = launch_apply(a, act, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();

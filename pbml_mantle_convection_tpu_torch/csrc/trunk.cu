@@ -5,7 +5,8 @@
 // input — branch 0 (c_h), the coarse branches 1..L-1 bicubic-upsampled to
 // H x W (c_h each) and the c_x-channel network input, 87 channels for the
 // flagship — and it runs the merge-1 conv 87 -> c_h with bias, GroupNorm
-// (c_h/4 groups) and exact GELU: the learned-boundary conv (learned=True)
+// (c_h/4 groups) and the activation `act` (blc_layer.cuh::Act, 1-7: exact
+// GELU or another of the seven): the learned-boundary conv (learned=True)
 // or, with zero_pad, the zero-padded SAME conv (learned=False; the
 // upsampled branches and the skip channels read 0 outside the field).
 //
@@ -31,13 +32,14 @@ extern "C" int pmc_trunk(const float* b0, const void* const* coarse,
                          const int* xi, const float* xw, const float* frag,
                          const float* bias, const float* gn_scale,
                          const float* gn_bias, int c_h, int H, int W,
-                         int groups, int zero_pad, void* stream_ptr) {
+                         int groups, int act, int zero_pad,
+                         void* stream_ptr) {
   using namespace pmc;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int min_hw = zero_pad ? 1 : 6;
   if (n_coarse < 0 || n_coarse > kMaxLevels || c_h < 8 || c_h > kMaxCo ||
       c_h % 8 || c_x < 0 || H < min_hw || W < min_hw || groups < 1 ||
-      c_h % groups)
+      c_h % groups || act == kActNone || !valid_act(act))
     return cudaErrorInvalidValue;
   TrunkSrc t{};
   t.b0 = b0;
@@ -71,7 +73,7 @@ extern "C" int pmc_trunk(const float* b0, const void* const* coarse,
   v.counter = counter;
   v.H = H;
   v.W = W;
-  cudaError_t err = launch_layer<true>(a, t, zero_pad != 0, stream);
+  cudaError_t err = launch_layer<true>(a, t, zero_pad != 0, act, stream);
   if (err != cudaSuccess) return err;
 
   ApplyArgs p{};
@@ -85,7 +87,7 @@ extern "C" int pmc_trunk(const float* b0, const void* const* coarse,
   p.lv[0].shift = gn_bias;
   p.lv[0].H = H;
   p.lv[0].W = W;
-  err = launch_apply(p, stream);
+  err = launch_apply(p, act, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -4,21 +4,23 @@ Counterpart of the JAX package's ``models/fast_path.py::FastNewFluidNet``
 with ``megakernel=True``: stem (``layer_stack``, also emitting the
 successive 2×2 pools of its output: the pyramid levels' inputs) → the
 branch stacks of every level in one ``layer_stacks`` call → ``trunk``
-(bicubic upsampling + merge-1 + GN0 + GELU) → merge 2 (GELU, no GN) →
-merge 3 (plain) → the raw stream function ψ. The engine hands ψ to the
-fused curl + advection epilogue (``ops/epilogue_kernel.py``). On the card
-that is 13 kernel launches per forward: stem 2, branches 6 + 1, trunk 2,
-merges 1 + 1.
+(bicubic upsampling + merge-1 + GN0 + act) → merge 2 (act, no GN) →
+merge 3 (plain) → the raw stream function ψ, where act is the model's
+``act_fn`` (each of the seven activations has its kernel instances). The
+engine hands ψ to the fused curl + advection epilogue
+(``ops/epilogue_kernel.py``). On the card that is 13 kernel launches per
+forward: stem 2, branches 6 + 1, trunk 2, merges 1 + 1.
 
 Fields are dense planar (C, H, W) tensors of one simulation (B = 1); the
 TPU block layouts of the JAX executor do not exist here. On CUDA tensors
 every stage is a hand-written kernel; on CPU tensors each stage runs its
 plain PyTorch version.
 
-Supported: the flagship form — k = 5, pooling factor 2, GELU, curl head
-with c_o = 1 and no pressure output, with or without ``blurr`` — with
-either padding the JAX executor takes: learned padding (every layer a learned-boundary conv, the
-kernels' learned instance) or zero padding (``r_p="zeros"``: every layer
+Supported: the flagship form — k = 5, pooling factor 2, any activation
+of ``models/layers.py``, curl head with c_o = 1 and no pressure output,
+with or without ``blurr`` — with either padding the JAX executor takes:
+learned padding (every layer a learned-boundary conv, the kernels'
+learned instance) or zero padding (``r_p="zeros"``: every layer
 a zero-padded SAME conv with its own bias, the kernels' zero instance;
 the 3×3 merge convs run as 5×5 kernels with a zero ring, the same
 function). The constructor raises on anything else.
@@ -60,7 +62,9 @@ def unsupported_reason(m: NewFluidNet) -> Optional[str]:
     padding (the layer kernels' learned-boundary instance) and zero
     padding (their zero-padded instance), each with k = 5, and ``blurr``
     (the module's head blurs the stream function; the engine then takes
-    no fused epilogue). Symmetric, dilated or spectral convs and dropout
+    no fused epilogue), with any activation of ``models/layers.py`` (each
+    has its kernel instances; ``ops/branch_kernel.py::act_code`` raises on
+    one that has none). Symmetric, dilated or spectral convs and dropout
     stay off it, as JAX's executor refuses them (fast_path.py:182-187)."""
     if not isinstance(m, NewFluidNet):
         return f"{type(m).__name__} (the executor runs NewFluidNet)"
@@ -75,8 +79,6 @@ def unsupported_reason(m: NewFluidNet) -> Optional[str]:
                 f"k=5)")
     if m.factor != 2:
         return f"factor={m.factor} (needs 2)"
-    if m.act_fn != "gelu":
-        return f"act_fn={m.act_fn!r} (the kernels apply exact GELU)"
     if m.loss_type != "curl" or m.c_o != 1 or m.p_pred:
         return "needs the curl head with c_o=1 and no pressure output"
     if m.c_h not in (8, 16):
@@ -119,10 +121,12 @@ class FastNewFluidNet:
         self.m = model
         self.H, self.W = H, W
         g = fluid_layer_groups(model.c_h)
+        act = model.act_fn
 
         def fluid(layers) -> StackWeights:
             return pack_stack([(*conv_weights(lay.conv), lay.gn.weight,
-                                lay.gn.bias) for lay in layers], groups=g)
+                                lay.gn.bias) for lay in layers], groups=g,
+                              act=act)
 
         def merge(conv, gn=None, use_act=True) -> StackWeights:
             return pack_stack(
@@ -130,7 +134,7 @@ class FastNewFluidNet:
                   gn.weight if gn is not None else None,
                   gn.bias if gn is not None else None)],
                 groups=max(1, model.c_h // 4) if gn is not None else 1,
-                use_gn=gn is not None, use_act=use_act)
+                use_gn=gn is not None, use_act=use_act, act=act)
 
         self.stem = fluid([model.conv_0])
         self.branches = [

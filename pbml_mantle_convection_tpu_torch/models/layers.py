@@ -27,8 +27,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+def sine30(x):
+    """SIREN-style activation sin(30 x) (reference ``Sine(30.)``)."""
+    return torch.sin(30.0 * x)
+
+
 _ACTIVATIONS = {
     "selu": F.selu,
+    "sine": sine30,
     "tanh": torch.tanh,
     "elu": F.elu,
     "silu": F.silu,

@@ -44,7 +44,7 @@ _SIGNATURES = {
                          _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "pmc_trunk": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P, _P, _P,
-                  _I, _I, _I, _I, _I, _P],
+                  _I, _I, _I, _I, _I, _I, _P],
     "pmc_curl_advect_epilogue": [_P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _P, _I,
                                  _I, _I, _F, _F, _F, _F, _P],

@@ -1,22 +1,24 @@
 """``layer_stack``: stacks of FluidLayers as one call.
 
 Replaces the TPU kernel ``pbml_mantle_convection_tpu/ops/branch_kernel.py::
-_stack_kernel`` (``LayerStack``), both of its instances: learned-boundary
+_stack_kernel`` (``LayerStack``), every instance of it: learned-boundary
 layers (``learned=True``) and zero-padded ones (``learned=False``: a 5×5
-SAME conv over the zero-padded field with the conv's own bias). On a CUDA
-tensor :func:`layer_stack` and :func:`layer_stacks` launch the
-hand-written kernels of ``csrc/layer_stack.cu``; on a CPU tensor they run
+SAME conv over the zero-padded field with the conv's own bias), each with
+any of the seven activations of ``models/layers.py`` (the JAX kernel's
+``act``; ``StackWeights.act``). On a CUDA tensor :func:`layer_stack` and
+:func:`layer_stacks` launch the hand-written kernels of
+``csrc/layer_stack.cu``; on a CPU tensor they run
 :func:`layer_stack_plain`, the same function in plain PyTorch (learned: 9
 VALID ``F.conv2d`` + ``torch.cat`` in the stitch order of the reference;
 zero: ``F.conv2d(F.pad(x, (2, 2, 2, 2)), w, b)``; then ``F.group_norm``
-and exact ``F.gelu``).
+and the activation of ``models/layers.py::get_activation``).
 
 What was built for the card (the note at the top of
 ``csrc/layer_stack.cu`` has the detail): one launch per layer, in which the
 5×5 conv of the interior and of the boundary ring runs on the tensor cores
 as an implicit GEMM in 3xTF32 (float32 accuracy), the previous layer's
-GroupNorm and GELU are applied while the input is staged, and the last
-block of each field turns per-block double sums into the layer's
+GroupNorm and activation are applied while the input is staged, and the
+last block of each field turns per-block double sums into the layer's
 GroupNorm statistics; one more pass after the last GroupNorm layer. The
 five pyramid levels' branch stacks share each launch
 (:func:`layer_stacks`), and the stem's last pass also writes the pyramid
@@ -35,12 +37,26 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from ..models.layers import blc_conv2d, float32_convs
+from ..models.layers import blc_conv2d, float32_convs, get_activation
 from . import _cuda
 from .resize import avg_pool_nchw
 
 # successive 2×2 pools the stem's last pass can write
 MAX_PYRAMID = 4
+# the activation codes of the C entry points (csrc/blc_layer.cuh::Act; 0
+# applies none): every activation of models/layers.py has its instance
+ACT_CODES = {"gelu": 1, "selu": 2, "elu": 3, "silu": 4, "relu": 5,
+             "tanh": 6, "sine": 7}
+
+
+def act_code(name: str) -> int:
+    """The kernels' code of activation ``name``; an activation without a
+    kernel instance raises."""
+    try:
+        return ACT_CODES[name]
+    except KeyError:
+        raise ValueError(f"the layer kernels have no instance of activation "
+                         f"{name!r}; they take {sorted(ACT_CODES)}") from None
 
 
 def _tf32(w: torch.Tensor) -> torch.Tensor:
@@ -76,7 +92,8 @@ def weight_fragments(ws: Sequence[torch.Tensor]) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class StackWeights:
     """Weights of R layers with c_o outputs each: learned-boundary layers,
-    or zero-padded ones when ``zero_pad``.
+    or zero-padded ones when ``zero_pad``; ``act`` names the activation
+    that ``use_act`` applies after each layer (a key of ``ACT_CODES``).
 
     ``kernels[i]`` holds layer i's OIHW 5×5 kernels, 9 in ``BLC_CLASSES``
     order or the one zero-padded conv's (the plain version reads them);
@@ -95,6 +112,7 @@ class StackWeights:
     use_gn: bool
     use_act: bool
     zero_pad: bool = False
+    act: str = "gelu"
 
     @property
     def R(self) -> int:
@@ -102,13 +120,14 @@ class StackWeights:
 
 
 def pack_stack(layers: Sequence, groups: int, use_gn: bool = True,
-               use_act: bool = True) -> StackWeights:
+               use_act: bool = True, act: str = "gelu") -> StackWeights:
     """``layers``: per layer (its OIHW 5×5 kernels, bias (c_o,), gn scale,
     gn bias): 9 kernels in ``BLC_CLASSES`` order for a learned-boundary
     layer and its learnable bias, or 1 for a zero-padded SAME conv and
     the conv's bias; the GN tensors may be None when ``use_gn`` is off.
     Every layer has the same kind, and every layer after the first maps
-    c_o → c_o."""
+    c_o → c_o. ``act``: the activation's name (``ACT_CODES``)."""
+    act_code(act)
     with torch.no_grad():
         kernels = tuple(tuple(k.detach() for k in ws)
                         for ws, _, _, _ in layers)
@@ -131,7 +150,7 @@ def pack_stack(layers: Sequence, groups: int, use_gn: bool = True,
                           for _, _, _, b in layers])
     return StackWeights(kernels, frag, bias.contiguous(), gs.contiguous(),
                         gb.contiguous(), int(c_in), int(c_o), groups,
-                        use_gn, use_act, n_cls == 1)
+                        use_gn, use_act, n_cls == 1, act)
 
 
 def zero_pad_conv2d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
@@ -145,6 +164,7 @@ def layer_stack_plain(x: torch.Tensor, sw: StackWeights, pool: bool = False,
                       pyramid: int = 0):
     """Plain PyTorch version of :func:`layer_stack`."""
     pooled = avg_pool_nchw(x, 2) if pool else None
+    act = get_activation(sw.act)
     y = x[None]
     for i in range(sw.R):
         if sw.zero_pad:
@@ -155,7 +175,7 @@ def layer_stack_plain(x: torch.Tensor, sw: StackWeights, pool: bool = False,
             y = F.group_norm(y, sw.groups, sw.gn_scale[i], sw.gn_bias[i],
                              eps=1e-5)
         if sw.use_act:
-            y = F.gelu(y)
+            y = act(y)
     y = y[0]
     if pyramid:
         pooled = [avg_pool_nchw(y, 2)]
@@ -176,8 +196,9 @@ def _launch(xs, sws, pool: bool = False, pyramid: int = 0):
     dev = xs[0].device
     for s in sws[1:]:
         if (s.R, s.c_in, s.c_o, s.groups, s.use_gn, s.use_act,
-                s.zero_pad) != (sw.R, sw.c_in, sw.c_o, sw.groups, sw.use_gn,
-                                sw.use_act, sw.zero_pad):
+                s.zero_pad, s.act) != (sw.R, sw.c_in, sw.c_o, sw.groups,
+                                       sw.use_gn, sw.use_act, sw.zero_pad,
+                                       sw.act):
             raise ValueError("layer_stacks: the stacks differ in shape")
     if not 1 <= len(xs) <= _cuda.MAX_LEVELS or len(xs) != len(sws):
         raise ValueError(f"layer_stacks: 1..{_cuda.MAX_LEVELS} fields, one "
@@ -226,7 +247,8 @@ def _launch(xs, sws, pool: bool = False, pyramid: int = 0):
         stats.data_ptr(), partial.data_ptr(), stride,
         _cuda.counters(dev).data_ptr(), ptrs(pyr or [None]), pyramid,
         _cuda.ptr(pooled), sw.c_in, sw.c_o, sw.R, groups, int(sw.use_gn),
-        int(sw.use_act), int(sw.zero_pad), _cuda.stream(xs[0]))
+        act_code(sw.act) if sw.use_act else 0, int(sw.zero_pad),
+        _cuda.stream(xs[0]))
     layer_stack.launches += 1
     _cuda.raise_on_error(err, "layer_stack")
     return ys, pooled, pyr
@@ -248,9 +270,9 @@ def layer_stack(x: torch.Tensor, sw: StackWeights, pool: bool = False,
 
 def layer_stacks(xs: Sequence[torch.Tensor],
                  sws: Sequence[StackWeights]) -> list:
-    """Stacks of equal R, c_in, c_o and norm flags on up to five fields of
-    any sizes (the pyramid levels' branches) → their outputs; on the card
-    layer r of every field runs in one launch."""
+    """Stacks of equal R, c_in, c_o, norm flags and activation on up to
+    five fields of any sizes (the pyramid levels' branches) → their
+    outputs; on the card layer r of every field runs in one launch."""
     if xs[0].device.type == "cpu":
         return layer_stacks_plain(xs, sws)
     return _launch(list(xs), list(sws))[0]

@@ -5,7 +5,8 @@ _trunk_kernel`` (``TrunkStack``). It takes NewFluidNet's merge input —
 branch 0, the coarse branches upsampled to H × W (Keys a = -0.75,
 half-pixel, clamped indices), the network input — and runs the merge-1
 conv (learned-boundary, or zero-padded when the merge layer's
-``StackWeights.zero_pad`` says so), bias, GroupNorm and GELU. On a CUDA
+``StackWeights.zero_pad`` says so), bias, GroupNorm and the merge layer's
+activation (``StackWeights.act``, any of the seven). On a CUDA
 tensor it launches ``csrc/trunk.cu``; on a CPU tensor it runs
 :func:`trunk_plain` (the resize matrices, ``torch.cat`` and
 :func:`layer_stack_plain`).
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .branch_kernel import StackWeights, layer_stack_plain
+from .branch_kernel import StackWeights, act_code, layer_stack_plain
 from .resize import _resize_matrix_np, resize_bicubic_nchw
 
 
@@ -117,8 +118,8 @@ def trunk(b0: torch.Tensor, coarse: Sequence[torch.Tensor], x: torch.Tensor,
     m, n = tw.merge, len(coarse)
     if c_h % 8 or not (m.use_gn and m.use_act) or n > _cuda.MAX_LEVELS:
         raise ValueError("trunk: the kernel takes c_h a multiple of 8, "
-                         f"GroupNorm + GELU, ≤ {_cuda.MAX_LEVELS} coarse "
-                         "branches")
+                         "GroupNorm followed by an activation, "
+                         f"≤ {_cuda.MAX_LEVELS} coarse branches")
     for t in (m.frag, m.bias, m.gn_scale, m.gn_bias, tw.y_w, tw.x_w):
         _cuda.check_cuda_f32("trunk weights", t)
         if t.device != b0.device:
@@ -137,8 +138,8 @@ def trunk(b0: torch.Tensor, coarse: Sequence[torch.Tensor], x: torch.Tensor,
         _cuda.counters(b0.device).data_ptr(), tw.y_idx.data_ptr(),
         tw.y_w.data_ptr(), tw.x_idx.data_ptr(), tw.x_w.data_ptr(),
         m.frag.data_ptr(), m.bias.data_ptr(), m.gn_scale.data_ptr(),
-        m.gn_bias.data_ptr(), c_h, H, W, m.groups, int(m.zero_pad),
-        _cuda.stream(b0))
+        m.gn_bias.data_ptr(), c_h, H, W, m.groups, act_code(m.act),
+        int(m.zero_pad), _cuda.stream(b0))
     trunk.launches += 1
     _cuda.raise_on_error(err, "trunk")
     return y

@@ -1,11 +1,14 @@
-"""Frank-Kamenetskii viscosity law (reference:
-pytorch_networks_convae.py:86-102, datasetio.py:25-27)."""
+"""Frank-Kamenetskii viscosity law and its input featurization
+(reference: pytorch_networks_convae.py:86-102, datasetio.py:25-27,
+268)."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..constants import visc_feature
 
 
 def _log(a):
@@ -27,3 +30,9 @@ def fk_viscosity_clipped(gamma: float, beta: float, z, T, lo=1e-8, hi=1.0):
     """FK viscosity clipped to the surrogate's training range
     (reference: pytorch_networks_convae.py:389, datasetio.py:619)."""
     return torch.clamp(fk_viscosity(gamma, beta, z, T), lo, hi)
+
+
+def fk_viscosity_feature(gamma, beta, z, T):
+    """log10(clip(eta, 1e-8, 1)) / 8 input channel
+    (reference: datasetio.py:268, pytorch_networks_convae.py:389-394)."""
+    return visc_feature(fk_viscosity(gamma, beta, z, T))

@@ -1,0 +1,1 @@
+from .grid import DEFAULT_GRID, Grid  # noqa: F401

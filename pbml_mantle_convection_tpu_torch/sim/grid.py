@@ -52,6 +52,18 @@ class Grid:
         return np.ascontiguousarray(np.broadcast_to(y[:, None],
                                                     (self.H, self.W)))
 
+    @property
+    def xc_np(self) -> np.ndarray:
+        """:attr:`xc` (host numpy float64) under the JAX grid's name for
+        its host copy."""
+        return self.xc
+
+    @property
+    def yc_np(self) -> np.ndarray:
+        """:attr:`yc` (host numpy float64) under the JAX grid's name for
+        its host copy."""
+        return self.yc
+
     @cached_property
     def sdf(self) -> np.ndarray:
         """(H, W) boundary indicator, float64: 1 on the outermost ring, 0
@@ -76,3 +88,6 @@ class Grid:
         """(xc, yc) as (H, W) tensors on ``device``."""
         return (torch.as_tensor(self.xc, dtype=dtype, device=device),
                 torch.as_tensor(self.yc, dtype=dtype, device=device))
+
+
+DEFAULT_GRID = Grid()

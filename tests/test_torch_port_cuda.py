@@ -37,9 +37,10 @@ def cuda():
 
 
 def _random_stack(c_i, c_o, R, groups, use_gn=True, use_act=True, seed=0,
-                  device="cpu", zero_pad=False):
+                  device="cpu", zero_pad=False, act="gelu"):
     """R random layers: learned-boundary (9 kernels each) or, with
-    ``zero_pad``, zero-padded SAME convs (1 kernel each)."""
+    ``zero_pad``, zero-padded SAME convs (1 kernel each); activation
+    ``act``."""
     g = torch.Generator().manual_seed(seed)
     layers = []
     ci = c_i
@@ -52,7 +53,7 @@ def _random_stack(c_i, c_o, R, groups, use_gn=True, use_act=True, seed=0,
         ci = c_o
     layers = [([w.to(device) for w in w9], b.to(device), s.to(device),
                t.to(device)) for w9, b, s, t in layers]
-    return pack_stack(layers, groups, use_gn, use_act)
+    return pack_stack(layers, groups, use_gn, use_act, act)
 
 
 @pytest.mark.cuda
@@ -922,3 +923,101 @@ def test_cuda_host_resident_batches_equal_device_resident(cuda):
                 assert torch.equal(a[k], b[k]), k
             n += 1
     assert n == 2 * (24 // 5)
+
+
+ACTS = ("gelu", "selu", "elu", "silu", "relu", "tanh", "sine")
+
+
+def _double(sw):
+    """The same layers as ``sw`` in float64, for the plain version."""
+    import dataclasses
+    return dataclasses.replace(
+        sw, kernels=tuple(tuple(k.double() for k in ws) for ws in sw.kernels),
+        bias=sw.bias.double(), gn_scale=sw.gn_scale.double(),
+        gn_bias=sw.gn_bias.double())
+
+
+def _hold_act(act, got, plain, plain64):
+    """Kernel against plain within 1e-4 of max |plain|; for ``sine``
+    (each sin(30·) turns float32 rounding into ~1e-4) the kernel's error
+    against float64 within 10x the plain float32 path's own."""
+    if act != "sine":
+        assert _rel(got, plain) <= 1e-4
+        return
+    ek, ep = _rel(got.double(), plain64), _rel(plain.double(), plain64)
+    assert ek <= 10 * ep, (ek, ep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_pad", [False, True])
+@pytest.mark.parametrize("act", ACTS)
+def test_cuda_layer_stack_activations_match_plain(cuda, act, zero_pad):
+    """Each activation's instances (learned and zero padding) at the
+    three sites that apply it: staging the next layer's input (R = 2),
+    the pass after the last GroupNorm, and the epilogue of a layer
+    without GroupNorm (merge 2's form); the grouped branch call; the same
+    bits twice."""
+    g = torch.Generator().manual_seed(21)
+    for c_i, R, use_gn, (H, W) in ((16, 2, True, (64, 253)),
+                                   (16, 1, False, (40, 70)),
+                                   (7, 1, True, (128, 506))):
+        sw = _random_stack(c_i, 16, R, 4 if use_gn else 1, use_gn,
+                           seed=5, device=cuda, zero_pad=zero_pad, act=act)
+        assert sw.act == act
+        x = torch.randn(c_i, H, W, generator=g).to(cuda)
+        n0 = layer_stack.launches
+        y, _ = layer_stack(x, sw)
+        assert layer_stack.launches == n0 + 1
+        y2, _ = layer_stack(x, sw)
+        ref, _ = layer_stack_plain(x, sw)
+        ref64, _ = layer_stack_plain(x.double(), _double(sw))
+        torch.cuda.synchronize()
+        _hold_act(act, y, ref, ref64)
+        assert torch.equal(y, y2)
+    sws = [_random_stack(16, 16, 2, 4, seed=50 + l, device=cuda,
+                         zero_pad=zero_pad, act=act) for l in range(5)]
+    xs = [torch.randn(16, 128 >> l, 506 >> l, generator=g).to(cuda)
+          for l in range(5)]
+    for y, ref, ref64 in zip(layer_stacks(xs, sws),
+                             layer_stacks_plain(xs, sws),
+                             layer_stacks_plain([x.double() for x in xs],
+                                                [_double(s) for s in sws])):
+        _hold_act(act, y, ref, ref64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_pad", [False, True])
+@pytest.mark.parametrize("act", ACTS)
+def test_cuda_trunk_activations_match_plain(cuda, act, zero_pad):
+    """The trunk's GroupNorm pass with each activation, at 128×506."""
+    H, W, c_h = 128, 506, 16
+    merge = _random_stack(5 * c_h + 7, c_h, 1, 4, seed=9, device=cuda,
+                          zero_pad=zero_pad, act=act)
+    hw = [(H // 2 ** l, W // 2 ** l) for l in range(1, 5)]
+    tw = trunk_weights(merge, hw, H, W)
+    assert tw.merge.act == act
+    g = torch.Generator().manual_seed(10)
+    b0 = torch.randn(c_h, H, W, generator=g).to(cuda)
+    coarse = [torch.randn(c_h, h, w, generator=g).to(cuda) for h, w in hw]
+    x = torch.randn(7, H, W, generator=g).to(cuda)
+    n0 = trunk.launches
+    y = trunk(b0, coarse, x, tw)
+    assert trunk.launches == n0 + 1
+    y2 = trunk(b0, coarse, x, tw)
+    yp = trunk_plain(b0, coarse, x, tw)
+    tw64 = trunk_weights(_double(merge), hw, H, W)
+    y64 = trunk_plain(b0.double(), [c.double() for c in coarse], x.double(),
+                      tw64)
+    torch.cuda.synchronize()
+    _hold_act(act, y, yp, y64)
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+def test_cuda_layer_stacks_refuse_mixed_activations(cuda):
+    """One launch runs one activation: stacks that differ in it raise."""
+    a = _random_stack(16, 16, 1, 4, device=cuda, act="selu")
+    b = _random_stack(16, 16, 1, 4, device=cuda, act="relu")
+    x = torch.randn(16, 32, 40, device=cuda)
+    with pytest.raises(ValueError, match="differ"):
+        layer_stacks([x, x], [a, b])

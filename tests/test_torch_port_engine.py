@@ -11,6 +11,8 @@
    tests/test_epilogue_kernel.py.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ from pbml_mantle_convection_tpu.sim.grid import Grid as JGrid  # noqa: E402
 from pbml_mantle_convection_tpu.sim.stepper import TimeStepper as JStepper  # noqa: E402
 
 from pbml_mantle_convection_tpu_torch.constants import SimParams  # noqa: E402
+from pbml_mantle_convection_tpu_torch.models import fast_path  # noqa: E402
 from pbml_mantle_convection_tpu_torch.models.fast_path import (  # noqa: E402
     FastNewFluidNet)
 from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet  # noqa: E402
@@ -167,11 +170,31 @@ def test_decay_heating_and_unsupported_configs():
             float(decay_heating(3.0, t, on)),
             float(j_decay(3.0, jnp.asarray(0.05), on, jnp.float64)),
             rtol=1e-14)
+    # a selu network (NewFluidNet's default activation) runs the
+    # kernels' selu instances: the executor builds, and a forward makes
+    # its 4 + 1 stage calls (counted here by wrapping them: on the CPU the
+    # wrappers run their plain versions and count no launch)
     net = NewFluidNet(levels=2, c_i=7, c_h=8, c_o=1, act_fn="selu",
                       r_p="learned", loss_type="curl", f=5, p_pred=False,
                       device="cpu")
-    with pytest.raises(ValueError, match="act_fn"):
-        FastNewFluidNet(net, 16, 30)
+    fast = FastNewFluidNet(net, 16, 30)
+    assert fast.stem.act == fast.trunk.merge.act == "selu"
+    calls = []
+
+    def counted(fn):
+        def wrap(*a, **k):
+            calls.append(fn.__name__)
+            return fn(*a, **k)
+        return wrap
+
+    n0 = layer_stack.launches
+    with mock.patch.multiple(fast_path, **{
+            n: counted(getattr(fast_path, n))
+            for n in ("layer_stack", "layer_stacks", "trunk")}):
+        with torch.no_grad():
+            u, _, _ = fast(torch.zeros(1, 16, 30, 7))
+    assert sorted(calls) == ["layer_stack"] * 3 + ["layer_stacks", "trunk"]
+    assert layer_stack.launches == n0 and torch.isfinite(u).all()
     # zero padding runs the kernels' zero instance; replicate padding has
     # no kernel instance
     with pytest.raises(ValueError, match="learned or zero padding"):

@@ -69,7 +69,7 @@ def test_fluid_layer(r_p):
 
 
 @pytest.mark.parametrize("name", ["gelu", "selu", "tanh", "relu", "silu",
-                                  "elu"])
+                                  "elu", "sine"])
 def test_activations(name):
     x = np.linspace(-6, 6, 1001)
     np.testing.assert_allclose(

@@ -261,12 +261,17 @@ def test_zero_instance_weights_and_refusals():
                                    b), tm.conv_2(x), rtol=1e-13, atol=1e-13)
     with pytest.raises(ValueError, match="9 learned-boundary kernels"):
         pack_stack([([k, k], b, None, None)], groups=1, use_gn=False)
+    base = dict(levels=2, c_i=7, c_h=8, c_o=1, act_fn="gelu",
+                loss_type="curl", repeats=1, f=5, p_pred=False)
     for bad in (dict(r_p="replicate"), dict(r_p="zeros", f=3),
-                dict(r_p="zeros", act_fn="selu")):
-        m = NewFluidNet(**{**dict(levels=2, c_i=7, c_h=8, c_o=1,
-                                  act_fn="gelu", loss_type="curl",
-                                  repeats=1, f=5, p_pred=False), **bad},
-                        device="cpu")
+                dict(r_p="zeros", c_h=12)):
+        m = NewFluidNet(**{**base, **bad}, device="cpu")
         assert unsupported_reason(m) is not None
         with pytest.raises(ValueError, match="unsupported config"):
             FastNewFluidNet(m, 20, 28)
+    # a zero-padded selu network runs the zero instances' selu kernels
+    m = NewFluidNet(**{**base, "r_p": "zeros", "act_fn": "selu"},
+                    device="cpu")
+    assert unsupported_reason(m) is None
+    fast = FastNewFluidNet(m, 20, 28)
+    assert fast.zero_pad and fast.stem.act == fast.trunk.merge.act == "selu"

@@ -38,7 +38,9 @@ card's name and power limit, the float64 leg's seconds and launches, each
 variant's three numbers and launches.
 
 ``--pad zeros`` runs the flagship with zero padding (the layer kernels'
-zero-padded instance) instead of learned padding.
+zero-padded instance) instead of learned padding; ``--act NAME`` with
+another activation of ``models/layers.py`` (the kernels' instance of
+it) instead of GELU.
 
 Runs (default): the flagship ML_STOKES rollout at 128×506 and 256×256,
 and ML_STOKES with core cooling, Di=0.5 and radioactive decay (the mode
@@ -194,9 +196,11 @@ def errors(T, mean_T, T_ref, mean_T_ref) -> dict:
 
 
 def measure(weights: dict, H: int, W: int, steps: int,
-            mode: str = "ML_STOKES", device="cuda", arch=None) -> dict:
-    """The float64 leg and each of the mode's ``MODE_VARIANTS`` for the
-    NewFluidNet ``arch`` holding ``weights`` → the run's JSON record."""
+            mode: str = "ML_STOKES", device="cuda", arch=None,
+            variants=None) -> dict:
+    """The float64 leg and each of ``variants`` (default: the mode's
+    ``MODE_VARIANTS``) for the NewFluidNet ``arch`` holding ``weights`` →
+    the run's JSON record."""
     kw = dict(mode=mode, device=device, arch=arch)
     ref = reference(weights, H, W, steps, **kw)
     rec = {"grid": f"{H}x{W}", "mode": mode, "steps": steps,
@@ -205,7 +209,7 @@ def measure(weights: dict, H: int, W: int, steps: int,
            "f64_launches_per_step": ref["launches_per_step"]}
     if not np.isfinite(ref["T"]).all():
         raise RuntimeError(f"{H}x{W} {mode}: the float64 leg diverged")
-    for name in MODE_VARIANTS[mode]:
+    for name in variants or MODE_VARIANTS[mode]:
         path, tf32 = VARIANTS[name]
         with tf32_convs() if tf32 else contextlib.nullcontext():
             got = rollout(weights, H, W, steps, path=path,
@@ -229,6 +233,10 @@ def build_parser():
                    choices=["learned", "zeros"],
                    help="the flagship's padding: learned, or zeros (the "
                         "layer kernels' zero-padded instance)")
+    p.add_argument("--act", type=str, default="gelu",
+                   help="the flagship's activation (an act_fn of "
+                        "models/layers.py; the layer kernels' instance "
+                        "of it)")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
     return p
@@ -240,7 +248,7 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("torch_port_accuracy: no CUDA device (pass "
                          "--device cpu to run on the CPU)")
-    arch = {**ARCH, "r_p": args.pad}
+    arch = {**ARCH, "r_p": args.pad, "act_fn": args.act}
     weights = flagship_weights(args.seed, arch)
     out = []
     for run in args.run or RUNS:
@@ -249,8 +257,9 @@ def main(argv=None):
         if mode not in MODES:
             raise SystemExit(f"torch_port_accuracy: mode {mode!r}: one of "
                              f"{sorted(MODES)}")
-        rec = {"r_p": args.pad, **measure(weights, H, W, args.steps, mode,
-                                          device=device, arch=arch)}
+        rec = {"r_p": args.pad, "act_fn": args.act,
+               **measure(weights, H, W, args.steps, mode, device=device,
+                         arch=arch)}
         print(json.dumps(rec), flush=True)
         out.append(rec)
     return out
