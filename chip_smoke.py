@@ -173,19 +173,33 @@ Run from the repository root, with no arguments::
    beside phase 3's); (c) the 500-step fused T_rmse of the ``selu`` and
    ``relu`` flagships against the float64 module path, below
    ``ACC_T_RMSE``;
-14. prints one JSON line of per-kernel numbers (launches summed over
-   phases 3, 4, 5, 7 and 12 (a)-(b); the layer kernels' zero instance,
-   its launches from phase 3c alone, under ``zero_instance``, and each
-   (activation, padding) instance of phase 13, its launches from 13 (b),
-   under ``activation_instances``, the top-level counts being the
-   learned GELU instance's), the card line again, and last ``{"ok":
-   true, "device": {...}}``.
+14. runs the rollout CLI's other heads at the flagship's width
+   (``run_heads``): (a) the ``mae`` + ``p_pred`` and curl + ``p_pred``
+   executors (merge 3 at c_o 3 and 2), learned and zero padding, each
+   ``layer_stack`` call and ``trunk`` against their plain versions,
+   timed, merge 3 beside its bound; (b) ``cli/rollout.py --fast 1`` with
+   ``-lt mae -pp 1``, ``-pp 1`` and ``-lt mass`` for 200 steps each: the
+   fused executor's route line, 4 + 1 + 0 + 1 launches per step (these
+   heads take no fused epilogue), the pressure in the snapshots with
+   ``-pp 1``, steps/s beside phase 3's and the curl head's through the
+   same CLI; (c) ``--fast 1 -f 32`` and ``-k 3``: the module route, 0 +
+   0 + 0 + 1 per step, steps/s; (d) the ``mae`` + ``p_pred`` flagship's
+   500-step fused T_rmse below ``ACC_T_RMSE``;
+15. prints one JSON line of per-kernel numbers (launches summed over
+   phases 3, 4, 5, 7, 12 (a)-(b) and 14 (b)-(c); the layer kernels' zero
+   instance, its launches from phase 3c alone, under ``zero_instance``,
+   each (activation, padding) instance of phase 13, its launches from 13
+   (b), under ``activation_instances``, and each (head, padding)
+   instance of phase 14, with merge 3's own numbers and the launches of
+   14 (b), under ``head_instances``, the top-level counts being the
+   learned GELU curl instance's), the card line again, and last
+   ``{"ok": true, "device": {...}}``.
 
-``--phase 10``, ``--phase 11``, ``--phase 12`` or ``--phase 13`` builds
-the kernels and runs phase 3 and then that phase alone (the drivers, the
-other models, the parallel paths or the activations, whose steps/s it
-prints beside phase 3's), with their launch checks; it prints no result
-line::
+``--phase 10``, ``--phase 11``, ``--phase 12``, ``--phase 13`` or
+``--phase 14`` builds the kernels and runs phase 3 and then that phase
+alone (the drivers, the other models, the parallel paths, the
+activations or the heads, whose steps/s it prints beside phase 3's),
+with their launch checks; it prints no result line::
 
     python3 chip_smoke.py --phase 12
 
@@ -486,7 +500,8 @@ def rel_err(a, b) -> tuple[float, float]:
     return d, d / max(float(b.abs().max()), 1e-30)
 
 
-def flagship(H, W, device, r_p="learned", act="gelu"):
+def flagship(H, W, device, r_p="learned", act="gelu", loss_type="curl",
+             p_pred=False):
     from pbml_mantle_convection_tpu_torch.constants import SimParams
     from pbml_mantle_convection_tpu_torch.models.fast_path import (
         FastNewFluidNet)
@@ -496,9 +511,10 @@ def flagship(H, W, device, r_p="learned", act="gelu"):
     from pbml_mantle_convection_tpu_torch.sim.stepper import TimeStepper
     grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2) if H != W else 1.0)
     params = SimParams(raq=3.0, fkt=1e8, fkp=10.0)
-    model = NewFluidNet(levels=5, c_i=7, c_h=16, c_o=1, act_fn=act,
-                        r_p=r_p, loss_type="curl", repeats=6, f=5,
-                        p_pred=False, seed=0, device=device)
+    c_o = (1 if loss_type == "curl" else 2) + p_pred
+    model = NewFluidNet(levels=5, c_i=7, c_h=16, c_o=c_o, act_fn=act,
+                        r_p=r_p, loss_type=loss_type, repeats=6, f=5,
+                        p_pred=p_pred, seed=0, device=device)
     fast = FastNewFluidNet(model, H, W)
 
     def engine(apply_fn):
@@ -620,6 +636,14 @@ def check_layer_kernels(H, W, r_p="learned", act="gelu", check=True,
         if not ((rel <= TOL["layer_stack"] or not check) and same):
             raise AssertionError(f"layer_stack{tag} {name} disagrees: "
                                  f"{rel}, repeatable {same}")
+        if name == "merge3":
+            # c_o columns of the 8 the tensor cores fill (c_o = 1 on the
+            # curl head, 2 or 3 on the others): their bound beside it
+            c_o = fast.merge3.c_o
+            merge3 = dict(c_o=c_o, max_abs_err=err, rel=rel, ms=ms,
+                          queued_ms=qms, plain_ms=pms, bound_ms=bms,
+                          bound_by=by, padded_bound_ms=bound_ms(
+                              nb, fl * 8 / c_o, tensor_cores=True)[0])
         tot["ms"] += ms
         tot["queued_ms"] += qms
         tot["plain_ms"] += pms
@@ -636,7 +660,7 @@ def check_layer_kernels(H, W, r_p="learned", act="gelu", check=True,
                               plain_ms=tot["plain_ms"], bound_ms=bms,
                               bound_by=by, library_ms=None,
                               queued_ms=tot["queued_ms"],
-                              simt_bound_ms=sms)
+                              simt_bound_ms=sms, merge3=merge3)
 
     # trunk
     def trunk_k():
@@ -3521,12 +3545,174 @@ def run_activations(counters, bench_sps, device="cuda", H=128, W=506,
         t_rmse = r["fused"]["T_rmse"]
         print(f"accuracy {H}x{W} [{act}] ML_STOKES: {acc_steps} steps, "
               f"fused T_rmse {t_rmse:.3e} (bound {ACC_T_RMSE}), trace_mae "
-              f"{r['fused']['trace_mae']:.3e}, {time.perf_counter() - t0:.1f} s")
+              f"{r['fused']['trace_mae']:.3e}, "
+          f"{time.perf_counter() - t0:.1f} s")
         if not t_rmse < ACC_T_RMSE:
             raise AssertionError(f"accuracy [{act}]: fused T_rmse "
                                  f"{t_rmse:.3e} >= {ACC_T_RMSE}")
     print(f"activations: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# phase 14: the rollout CLI's other heads at the flagship's width (-lt
+# mae|mass, -pp 1), seeded weights, and the curl head through the same
+# CLI as their baseline; (loss_type, p_pred) of each
+HEADS = {"curl": ("curl", False), "mae+p": ("mae", True),
+         "curl+p": ("curl", True), "mass": ("mass", False)}
+# the executors held kernel against plain: (head, paddings); the curl
+# head (merge 3 at c_o 1) is the same call's baseline
+HEAD_CHECKS = {"curl": ("learned",), "mae+p": ("learned", "zeros"),
+               "curl+p": ("learned", "zeros")}
+HEAD_STEPS = 200           # timed CLI steps per head
+# the widths and kernel sizes the executor lacks: the CLI's module route
+ROUTE_FLAGS = {"-f 32": ["-f", "32"], "-k 3": ["-k", "3"]}
+ROUTE_STEPS = 50
+
+
+def head_argv(flags, device="cuda"):
+    """The phase 10 flagship's CLI flags (ML_STOKES) with ``flags`` in
+    place of or beside them."""
+    d = dict(zip(DRIVER_ARGV[::2], DRIVER_ARGV[1::2]))
+    d.update(zip(flags[::2], flags[1::2]))
+    return ["-m", "ML_STOKES", *(a for kv in d.items() for a in kv),
+            "--device", device]
+
+
+def head_cli_leg(counters, name, argv, out_dir, want, route):
+    """:func:`driver_leg` with the CLI's route line read from its output:
+    it must start with ``route``. Returns (the route line, the pickles)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, _, pk = driver_leg(counters, name, argv, out_dir, want)
+    print(buf.getvalue(), end="")
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("route: ")]
+    if len(lines) != 1 or not lines[0].startswith(route):
+        raise AssertionError(f"{name}: route lines {lines}, want {route!r}")
+    T_vec = np.asarray(pk["T_vec"])
+    if not np.isfinite(T_vec).all():
+        raise AssertionError(f"{name}: T_vec not finite")
+    return lines[0], pk
+
+
+def run_heads(counters, bench_sps, device="cuda", H=128, W=506,
+              steps=HEAD_STEPS, route_steps=ROUTE_STEPS, acc_steps=500):
+    """Phase 14: the rollout CLI's other heads at the flagship's width
+    (``-l 5 -r 6 -f 16 -k 5 -s 0``), 128×506, seeded weights:
+    (a) the ``mae`` + ``p_pred`` (c_o 3) and curl + ``p_pred`` (c_o 2)
+    executors, learned and zero padding: each ``layer_stack`` call (merge
+    3 at its c_o among them) and ``trunk`` against their plain versions,
+    timed (``check_layer_kernels``), merge 3 with its bound at its c_o
+    and with c_o padded to the 8 columns the tensor cores fill, beside
+    the curl head's (c_o 1, learned) in the same call;
+    (b) ``cli/rollout.py --fast 1`` with ``-lt mae -pp 1``, ``-pp 1`` and
+    ``-lt mass``: the fused executor (its route line), 4 + 1 + 0 + 1
+    launches per step (no fused epilogue), T_vec finite, the snapshots'
+    pressure nonzero with ``-pp 1``, steps/s from sum(TS_vec) beside
+    phase 3's and beside the curl head's through the same CLI (4 + 1 +
+    1 + 0: its chunks and host copies are theirs);
+    (c) ``--fast 1 -f 32`` and ``-k 3``: the module route (its line), 0 +
+    0 + 0 + 1 per step, steps/s;
+    (d) the 500-step T_rmse of the ``mae`` + ``p_pred`` flagship, fused
+    and module float32 against the float64 module path
+    (``tools/torch_port_accuracy.py``), the fused leg below
+    ``ACC_T_RMSE``, 4 + 1 + 0 + 1 launches per step.
+    Returns ({"layer_stack": {"head/padding": record}, "trunk": ...} for
+    the kernels line, with the layer_stack launches of (b), and the
+    launches of (b) and (c) summed)."""
+    import tempfile
+    import torch
+    from pbml_mantle_convection_tpu_torch.sim.rollout import WARMUP_STEPS
+    t_phase = time.perf_counter()
+    out = {"layer_stack": {}, "trunk": {}}
+    for name, pads in HEAD_CHECKS.items():
+        lt, pp = HEADS[name]
+        for r_p in pads:
+            built = flagship(H, W, device, r_p, "gelu", lt, pp)
+            rec = check_layer_kernels(H, W, r_p, built=built)[0]
+            m3 = rec["layer_stack"]["merge3"]
+            if m3["c_o"] != built[0].c_o:
+                raise AssertionError(f"heads [{name}, {r_p}]: merge 3 at "
+                                     f"c_o {m3['c_o']}")
+            for k in ("layer_stack", "trunk"):
+                out[k][f"{name}/{r_p}"] = rec[k]
+            print(f"heads [{name}, {r_p}]: merge 3 c_o={m3['c_o']} rel "
+                  f"{m3['rel']:.3e} (tol {TOL['layer_stack']}), "
+                  f"{m3['queued_ms']:.5f} ms device only, plain "
+                  f"{m3['plain_ms']:.4f}, bound {m3['bound_ms']:.5f} "
+                  f"({m3['bound_by']}, 3xTF32), c_o padded to 8 "
+                  f"{m3['padded_bound_ms']:.5f}")
+            del built
+            torch.cuda.empty_cache()
+
+    launch = dict.fromkeys(counters, 0)
+    with tempfile.TemporaryDirectory() as root:
+        for name, (lt, pp) in HEADS.items():
+            flags = (["-lt", lt] if lt != "curl" else []) + (
+                ["-pp", "1"] if pp else [])
+            n = steps + WARMUP_STEPS
+            want = {"layer_stack": 4 * n, "trunk": n,
+                    "advect_diffuse_step_fused": n}
+            if name == "curl":       # the fused epilogue's step
+                want = rollout_launches(1, n)
+            route, pk = head_cli_leg(
+                counters, f"heads (b): {' '.join(flags) or 'curl'}",
+                head_argv(flags + ["--max_steps", str(steps)], device),
+                os.path.join(root, name), want, "route: fused executor")
+            P = np.stack(pk["snapshots"]["P"])
+            if bool(np.abs(P).max() > 0) != pp or not np.isfinite(P).all():
+                raise AssertionError(f"heads (b) {name}: snapshot P max "
+                                     f"{np.abs(P).max()}, p_pred {pp}")
+            for k in launch:
+                launch[k] += counters[k].launches
+            sps = steps / float(np.sum(pk["TS_vec"]))
+            if f"{name}/learned" in out["layer_stack"]:
+                out["layer_stack"][f"{name}/learned"].update(
+                    launches=counters["layer_stack"].launches,
+                    steps_per_s=sps)
+                out["trunk"][f"{name}/learned"].update(
+                    launches=counters["trunk"].launches, steps_per_s=sps)
+            print(f"heads (b) {name}: {sps:.2f} steps/s from sum(TS_vec) "
+                  f"({steps} steps; {sps / bench_sps:.3f} of phase 3's "
+                  f"{bench_sps:.2f}), snapshot |P| max {np.abs(P).max():.3e}")
+        for name, flags in ROUTE_FLAGS.items():
+            n = route_steps + WARMUP_STEPS
+            route, pk = head_cli_leg(
+                counters, f"heads (c): {name}",
+                head_argv(flags + ["--max_steps", str(route_steps)], device),
+                os.path.join(root, name.replace(" ", "")),
+                {"advect_diffuse_step_fused": n}, "route: module")
+            for k in launch:
+                launch[k] += counters[k].launches
+            sps = route_steps / float(np.sum(pk["TS_vec"]))
+            print(f"heads (c) {name}: {sps:.2f} steps/s from sum(TS_vec) "
+                  f"({route_steps} steps, the module path), {route}")
+
+    acc = accuracy_tool()
+    arch = acc.head_arch(acc.ARCH, "mae", True)
+    t0 = time.perf_counter()
+    r = acc.measure(acc.flagship_weights(0, arch), H, W, acc_steps,
+                    "ML_STOKES", device=device, arch=arch,
+                    variants=("fused", "module_f32"))
+    print(json.dumps({"loss_type": "mae", "p_pred": True, **r}))
+    want = {"layer_stack": 4, "trunk": 1, "curl_advect_epilogue": 0,
+            "advect_diffuse_step_fused": 1}
+    if r["fused"]["launches_per_step"] != want:
+        raise AssertionError(f"accuracy mae+p: fused launches "
+                             f"{r['fused']['launches_per_step']}")
+    t_rmse = r["fused"]["T_rmse"]
+    print(f"accuracy {H}x{W} [mae+p] ML_STOKES: {acc_steps} steps, fused "
+          f"T_rmse {t_rmse:.3e} (bound {ACC_T_RMSE}), module_f32 "
+          f"{r['module_f32']['T_rmse']:.3e}, trace_mae "
+          f"{r['fused']['trace_mae']:.3e}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not t_rmse < ACC_T_RMSE:
+        raise AssertionError(f"accuracy [mae+p]: fused T_rmse {t_rmse:.3e} "
+                             f">= {ACC_T_RMSE}")
+    print(f"heads: {time.perf_counter() - t_phase:.1f} s")
+    return out, launch
 
 
 def run_phase(n: int) -> int:
@@ -3547,7 +3733,7 @@ def run_phase(n: int) -> int:
 
 # the phases ``--phase`` runs after phase 3, by number
 PHASES = {10: "run_drivers", 11: "run_other_models", 12: "run_parallel",
-          13: "run_activations"}
+          13: "run_activations", 14: "run_heads"}
 
 
 def main(argv=None) -> int:
@@ -3638,6 +3824,11 @@ def main(argv=None) -> int:
         launch[k] += n
     for k, inst in run_activations(counters, bench_sps[128, 506]).items():
         rec[k]["activation_instances"] = inst
+    heads, n_heads = run_heads(counters, bench_sps[128, 506])
+    for k, inst in heads.items():
+        rec[k]["head_instances"] = inst
+    for k, n in n_heads.items():
+        launch[k] += n
 
     floor = launch_floor(1, ENERGY_BLOCK)
     print(f"launch floor: an empty kernel of one block of {ENERGY_BLOCK} "

@@ -69,7 +69,8 @@ import torch.distributed as dist
 
 from ..constants import SimParams
 from ..models.fast_path import (BF16_LEARNED, BF16_ZERO_ROLLOUT,
-                                FastNewFluidNet, unsupported_reason)
+                                FastNewFluidNet, executor_or_module,
+                                unsupported_reason)
 from ..models.registry import ModelConfig, build_model
 from ..sim.engine import SimEngine
 from ..sim.grid import Grid
@@ -367,11 +368,13 @@ def _benchmark(args, device):
     model = build_model(mc, device=device)
     grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
     params = SimParams(3.0, 1e8, 10.0)
-    # the executor in float32, and in bfloat16 where JAX's runs
-    # (bf16_refusal leaves it the zero-padded inference)
-    fast = (not args.raw_module and args.network == "newfluidnet"
-            and dtype in (torch.float32, torch.bfloat16)
-            and unsupported_reason(model) is None)
+    # the executor where JAX's CLI builds its own (newfluidnet, learned
+    # or zero padding; executor_or_module runs the module where the
+    # executor does not take the configuration), in float32, and in
+    # bfloat16 where JAX's runs (bf16_refusal leaves it the zero-padded
+    # inference)
+    jax_fast = (args.network == "newfluidnet"
+                and args.r_p in ("learned", "zeros"))
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
 
@@ -386,10 +389,11 @@ def _benchmark(args, device):
         x = inference_input(args.network, H, W, mc.channels[0], dtype,
                             device)
         fwd = model
-        if fast and dtype == torch.bfloat16:
-            fwd, x = FastNewFluidNet.float32_of(model, H, W), x.float()
-        elif fast:
-            fwd = FastNewFluidNet(model, H, W)
+        if jax_fast and not args.raw_module:
+            if dtype == torch.bfloat16 and unsupported_reason(model) is None:
+                fwd, x = FastNewFluidNet.float32_of(model, H, W), x.float()
+            elif dtype == torch.float32:
+                fwd, _ = executor_or_module(model, H, W)
         with torch.no_grad():
             fwd(x)
             sync(device)
@@ -405,9 +409,9 @@ def _benchmark(args, device):
         return ms
 
     # rollout: the coupled engine, B simulations
-    apply_fn = FastNewFluidNet(model, H, W) if (
-        args.network == "newfluidnet" and dtype == torch.float32
-        and unsupported_reason(model) is None) else model
+    apply_fn = model
+    if jax_fast and dtype == torch.float32:
+        apply_fn, _ = executor_or_module(model, H, W)
     engine = SimEngine(TimeStepper(grid, params, apply_fn, cn_max=0.99,
                                    dtype=dtype, device=device,
                                    net=args.network))

@@ -12,7 +12,10 @@ defaults, plus ``--device``. Modes (advect_wi_gaia.py:218-222):
 
 ``--engine torch`` (default) runs the coupled loop on the device through
 ``SimEngine`` (with ``--fast 1`` the flagship family runs the fused
-executor and its kernels, as the JAX CLI runs its own); ``--engine
+executor and its kernels, as the JAX CLI runs its own, with every head
+``-lt``/``-pp`` offer; widths and kernel sizes the executor lacks run
+the module, as JAX's fall back to its standard path; the CLI prints the
+route it took); ``--engine
 native`` (and ``-m GAIA``) drives the C++ engine step by step on the
 host, the surrogate on the device. Writes the run directory
 ``run_name(...)`` under ``--out_dir`` with ``ml_prof.txt``, ``Gaia.ini``
@@ -114,13 +117,17 @@ def initial_temperature(grid, raq: float, fkt: float, fkp: float,
 def build_surrogate(args, grid, device):
     """The surrogate of the ML modes: the registry's model, its
     weights from ``--nn_dir`` (the port Trainer's
-    ``{epoch}_fluidnet_uvp.ckpt``) or seed 0, run through the fused
-    executor where the JAX CLI runs its own (``--fast 1``, newfluidnet,
-    learned or zero padding, ``use_symm`` off); else the module (JAX's
-    CLI builds the ViT at the registry's 128×506 default, the grid)."""
+    ``{epoch}_fluidnet_uvp.ckpt``) or seed 0. Where the JAX CLI builds
+    its ``FastNewFluidNet`` (``--fast 1``, newfluidnet, learned or zero
+    padding, ``use_symm`` off), ``models/fast_path.py::
+    executor_or_module`` picks the fused executor or, for what the
+    executor does not run (c_h ∉ {8, 16}, k ≠ 5, factor ≠ 2), the module:
+    the function JAX's executor computes on its standard path. Else the
+    module (JAX's CLI builds the ViT at the registry's 128×506 default,
+    the grid). Prints one line naming the route and why."""
     import torch
 
-    from ..models.fast_path import FastNewFluidNet, unsupported_reason
+    from ..models.fast_path import executor_or_module
     from ..models.registry import ModelConfig, build_model
     from ..utils.checkpoint import restore_checkpoint
 
@@ -142,14 +149,14 @@ def build_surrogate(args, grid, device):
     model.eval()
     if (args.fast and args.network == "newfluidnet"
             and args.r_p in ("learned", "zeros") and not args.use_symm):
-        reason = unsupported_reason(model)
-        if reason is not None:
-            raise NotImplementedError(
-                f"--fast 1: the fused executor does not run this network: "
-                f"{reason} (ROADMAP queue 1 item 3); --fast 0 runs the "
-                f"module path")
-        return FastNewFluidNet(model, grid.H, grid.W)
-    return model
+        fn, route = executor_or_module(model, grid.H, grid.W)
+    else:
+        fn, route = model, (
+            f"route: module (--fast {args.fast} -net {args.network} -pad "
+            f"{args.r_p} -s {args.use_symm}: the executor takes --fast 1 "
+            f"newfluidnet with learned or zero padding and -s 0)")
+    print(route)
+    return fn
 
 
 def main(argv=None):

@@ -5,8 +5,8 @@ The values are kept bit-for-bit equal to the JAX package's
 stay numerically comparable (reference: scaler.py:4-36,
 datasetio.py:124-136, calculate_profiles.py:13-38).
 
-The scaling law and the non-dimensionalizations take Python floats or
-numpy arrays; :func:`visc_feature` works on a torch tensor.
+The scaling law, the non-dimensionalizations and their inverses take
+Python floats or numpy arrays; :func:`visc_feature` works on a torch tensor.
 """
 
 from __future__ import annotations
@@ -38,6 +38,13 @@ VISC_LOG_SCALE = 8.0
 
 # Coordinate featurization: xc/4, yc/4 (reference: datasetio.py:630-632).
 COORD_SCALE = 4.0
+
+# Default grid (reference: prepare_gaia_ini.py:23-26): 126 interior
+# layers at aspect ratio 4 → 128 rows × 506 cols with the boundary ones.
+GRID_H = 128
+GRID_W = 506
+ASPECT_RATIO = 4.0
+N_LAYERS = 126  # interior layers; dx = 1/126 (advect_wi_gaia.py:739)
 
 # Simulations the reference drops from every split (datasetio.py:33, 96).
 IGNORE_SIM_INDICES = (8, 39)
@@ -101,6 +108,24 @@ def nondim_fkt(fkt):
 def nondim_fkp(fkp):
     """log10(fkp) → [0, 1] (reference: datasetio.py:132-136)."""
     return (np.log10(fkp) - LOG10_FKP_MIN) / (LOG10_FKP_MAX - LOG10_FKP_MIN)
+
+
+def dim_raq(x):
+    """Inverse of :func:`nondim_raq` (reference:
+    calculate_profiles.py:27-28)."""
+    return x * (RAQ_MAX - RAQ_MIN) + RAQ_MIN
+
+
+def dim_fkt(x):
+    """Inverse of :func:`nondim_fkt` (reference:
+    calculate_profiles.py:31-32)."""
+    return 10.0 ** (x * (LOG10_FKT_MAX - LOG10_FKT_MIN) + LOG10_FKT_MIN)
+
+
+def dim_fkp(x):
+    """Inverse of :func:`nondim_fkp` (reference:
+    calculate_profiles.py:35-38)."""
+    return 10.0 ** (x * (LOG10_FKP_MAX - LOG10_FKP_MIN) + LOG10_FKP_MIN)
 
 
 def visc_feature(V: torch.Tensor) -> torch.Tensor:

@@ -5,25 +5,31 @@ with ``megakernel=True``: stem (``layer_stack``, also emitting the
 successive 2×2 pools of its output: the pyramid levels' inputs) → the
 branch stacks of every level in one ``layer_stacks`` call → ``trunk``
 (bicubic upsampling + merge-1 + GN0 + act) → merge 2 (act, no GN) →
-merge 3 (plain) → the raw stream function ψ, where act is the model's
-``act_fn`` (each of the seven activations has its kernel instances). The
+merge 3 (plain) → the head's c_o raw channels (the stream function ψ
+of the curl head), where act is the model's ``act_fn`` (each of the
+seven activations has its kernel instances). For a plain curl head the
 engine hands ψ to the fused curl + advection epilogue
-(``ops/epilogue_kernel.py``). On the card that is 13 kernel launches per
-forward: stem 2, branches 6 + 1, trunk 2, merges 1 + 1.
+(``ops/epilogue_kernel.py``); other heads go through the module's head.
+On the card that is 13 kernel launches per forward: stem 2, branches 6
++ 1, trunk 2, merges 1 + 1.
 
 Fields are dense planar (C, H, W) tensors of one simulation (B = 1); the
 TPU block layouts of the JAX executor do not exist here. On CUDA tensors
 every stage is a hand-written kernel; on CPU tensors each stage runs its
 plain PyTorch version.
 
-Supported: the flagship form — k = 5, pooling factor 2, any activation
-of ``models/layers.py``, curl head with c_o = 1 and no pressure output,
-with or without ``blurr`` — with either padding the JAX executor takes:
-learned padding (every layer a learned-boundary conv, the kernels'
-learned instance) or zero padding (``r_p="zeros"``: every layer
-a zero-padded SAME conv with its own bias, the kernels' zero instance;
-the 3×3 merge convs run as 5×5 kernels with a zero ring, the same
-function). The constructor raises on anything else.
+Supported: the flagship form — k = 5, pooling factor 2, c_h 8 or 16,
+any activation of ``models/layers.py``, with or without ``blurr`` — with
+any head JAX's executor runs: the curl head (c_o = 1, or 2 with the
+pressure output ``p_pred``) or the ``mae``/``mass`` heads (u, v and with
+``p_pred`` p: c_o = 2 or 3), merge 3 a ``layer_stack`` of the model's
+c_o; and with either padding the JAX executor takes: learned padding
+(every layer a learned-boundary conv, the kernels' learned instance) or
+zero padding (``r_p="zeros"``: every layer a zero-padded SAME conv with
+its own bias, the kernels' zero instance; the 3×3 merge convs run as
+5×5 kernels with a zero ring, the same function). The constructor
+raises on anything else; :func:`executor_or_module` is how the CLIs
+choose between it and the module.
 """
 
 from __future__ import annotations
@@ -57,15 +63,11 @@ BF16_ZERO_ROLLOUT = (
     "function carry input and carry output must have equal types')")
 
 
-def unsupported_reason(m: NewFluidNet) -> Optional[str]:
-    """Why the fused executor cannot run ``m``, or None. It runs learned
-    padding (the layer kernels' learned-boundary instance) and zero
-    padding (their zero-padded instance), each with k = 5, and ``blurr``
-    (the module's head blurs the stream function; the engine then takes
-    no fused epilogue), with any activation of ``models/layers.py`` (each
-    has its kernel instances; ``ops/branch_kernel.py::act_code`` raises on
-    one that has none). Symmetric, dilated or spectral convs and dropout
-    stay off it, as JAX's executor refuses them (fast_path.py:182-187)."""
+def refusal_reason(m) -> Optional[str]:
+    """Why JAX's ``FastNewFluidNet`` constructor raises on ``m``
+    (fast_path.py:177-186), or None: a network that is no NewFluidNet,
+    symmetric or dilated convs, spectral convs or dropout, a padding
+    other than learned or zeros."""
     if not isinstance(m, NewFluidNet):
         return f"{type(m).__name__} (the executor runs NewFluidNet)"
     if m.use_symm or m.dilation != 1:
@@ -74,16 +76,52 @@ def unsupported_reason(m: NewFluidNet) -> Optional[str]:
     if m.spectral_conv or m.drop_rate:
         return (f"spectral_conv={m.spectral_conv}, drop_rate={m.drop_rate} "
                 f"(no spectral convs or dropout)")
-    if m.r_p not in ("learned", "zeros") or m.f != 5:
-        return (f"r_p={m.r_p!r}, f={m.f} (needs learned or zero padding, "
-                f"k=5)")
+    if m.r_p not in ("learned", "zeros"):
+        return f"r_p={m.r_p!r} (needs learned or zero padding)"
+    return None
+
+
+def unsupported_reason(m) -> Optional[str]:
+    """Why the fused executor cannot run ``m``, or None: what JAX's
+    constructor refuses (:func:`refusal_reason`), and what JAX's
+    megakernel gate sends to its standard path (``_mk_unsupported``,
+    fast_path.py:228-271: k ≠ 5, factor ≠ 2; here also c_h ∉ {8, 16},
+    the widths the layer kernels are built for). It runs learned and
+    zero padding, ``blurr`` (the module's head blurs the stream
+    function; the engine then takes no fused epilogue), every head
+    (merge 3 at the model's c_o; :meth:`NewFluidNet.head` splits the
+    channels), and any activation of ``models/layers.py`` (each has its
+    kernel instances; ``ops/branch_kernel.py::act_code`` raises on one
+    that has none)."""
+    reason = refusal_reason(m)
+    if reason is not None:
+        return reason
+    if m.f != 5:
+        return f"k={m.f} (needs 5)"
     if m.factor != 2:
         return f"factor={m.factor} (needs 2)"
-    if m.loss_type != "curl" or m.c_o != 1 or m.p_pred:
-        return "needs the curl head with c_o=1 and no pressure output"
     if m.c_h not in (8, 16):
         return f"c_h={m.c_h} (the kernels are built for 8 or 16)"
     return None
+
+
+def executor_or_module(model, H: int, W: int):
+    """The NewFluidNet ``model`` as JAX's ``FastNewFluidNet(model, ...)``
+    computes it on an H × W grid, chosen from the configuration alone:
+    (the fused executor, its route line) where the executor runs it,
+    else (``model``, the route line with the gate's reason) — the
+    function JAX's executor computes on its standard path when its
+    megakernel gate refuses. Raises ValueError where JAX's constructor
+    raises (:func:`refusal_reason`)."""
+    reason = refusal_reason(model)
+    if reason is not None:
+        raise ValueError(f"FastNewFluidNet: unsupported config: {reason}")
+    reason = unsupported_reason(model)
+    if reason is not None:
+        return model, f"route: module ({reason})"
+    return (FastNewFluidNet(model, H, W),
+            f"route: fused executor (c_o={model.c_o}, {model.loss_type} "
+            f"head{', p_pred' if model.p_pred else ''})")
 
 
 def conv_weights(conv) -> tuple:
@@ -107,10 +145,11 @@ def conv_weights(conv) -> tuple:
 class FastNewFluidNet:
     """Fused executor of ``model`` on an H × W grid (see module doc).
 
-    ``fast(x)`` with x (1, H, W, c_i) NHWC returns (u, v, None) like the
-    module; ``fast.apply_psi_from_T(T)`` returns the raw stream function
-    from a (1, H, W) temperature once :meth:`bind_input_assembly` has
-    fixed the grid's static input channels.
+    ``fast(x)`` with x (1, H, W, c_i) NHWC returns (u, v, p|None) like
+    the module (p with ``p_pred``); ``fast.apply_psi_from_T(T)`` returns
+    merge 3's raw (c_o, H, W) output from a (1, H, W) temperature once
+    :meth:`bind_input_assembly` has fixed the grid's static input
+    channels.
     """
 
     def __init__(self, model: NewFluidNet, H: int, W: int):
@@ -157,7 +196,9 @@ class FastNewFluidNet:
         return self.stem.zero_pad
 
     def psi(self, x: torch.Tensor) -> torch.Tensor:
-        """(c_i, H, W) planar input → (1, H, W) raw stream function."""
+        """(c_i, H, W) planar input → merge 3's raw (c_o, H, W) output:
+        the stream function (and p) of the curl head, u, v (and p) of
+        the ``mae``/``mass`` heads, before the mean subtraction."""
         b_in, pyr = layer_stack(x, self.stem,
                                 pyramid=len(self.branches) - 1)
         outs = layer_stacks([b_in, *(pyr or [])], self.branches)
@@ -167,7 +208,7 @@ class FastNewFluidNet:
         return y
 
     def __call__(self, x: torch.Tensor):
-        """(1, H, W, c_i) NHWC input → (u, v, None), each (1, H, W)."""
+        """(1, H, W, c_i) NHWC input → (u, v, p|None), each (1, H, W)."""
         if x.shape[0] != 1:
             raise ValueError("FastNewFluidNet runs one simulation (B=1)")
         psi = self.psi(x[0].permute(2, 0, 1).contiguous())
@@ -208,10 +249,11 @@ class FastNewFluidNet:
 
     def apply_from_T(self, T: torch.Tensor, V=None):
         """(1, H, W) temperature (and its clipped viscosity, when the
-        caller has it) → (u, v, None) through the bound input."""
+        caller has it) → (u, v, p|None) through the bound input."""
         return self.m.head(self.psi(self.input_from_T(T, V))[None])
 
     def apply_psi_from_T(self, T: torch.Tensor, V=None) -> torch.Tensor:
-        """(1, H, W) temperature → (1, H, W) raw stream function (merge-3
-        output before mean subtraction and a_bound) for the epilogue."""
+        """(1, H, W) temperature → merge 3's raw (c_o, H, W) output (before
+        mean subtraction and a_bound); channel 0 is the stream function
+        the epilogue takes for a curl head without ``p_pred``."""
         return self.psi(self.input_from_T(T, V))

@@ -1,0 +1,1 @@
+from . import curl, resize, stencils  # noqa: F401

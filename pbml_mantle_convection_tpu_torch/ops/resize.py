@@ -1,9 +1,10 @@
 """Bicubic resampling as dense interpolation matrices, and VALID pooling.
 
 Counterpart of the JAX package's ``ops/resize.py``. The matrices are the
-separable cubic-convolution definition (Keys kernel, a = -0.75,
-half-pixel coordinates, clamped source indices) that torch's bicubic
-``align_corners=False`` also uses.
+separable cubic-convolution definition (Keys kernel, by default a =
+-0.75 and half-pixel coordinates, clamped source indices) that torch's
+bicubic ``align_corners=False`` also uses; ``a`` and ``align_corners``
+are arguments, as in JAX's.
 """
 
 from __future__ import annotations
@@ -26,15 +27,27 @@ def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
     )
 
 
+def _resize_matrix_np(in_size: int, out_size: int, a: float = -0.75,
+                      align_corners: bool = False) -> np.ndarray:
+    """(out_size, in_size) cubic interpolation matrix, float64: half-pixel
+    source coordinates, or with ``align_corners`` the end pixels' centres
+    on each other's. Every call of the same matrix, with its defaults
+    given or not, reads one cache entry."""
+    return _cubic_matrix_np(int(in_size), int(out_size), float(a),
+                            bool(align_corners))
+
+
 @functools.lru_cache(maxsize=None)
-def _resize_matrix_np(in_size: int, out_size: int,
-                      a: float = -0.75) -> np.ndarray:
-    """(out_size, in_size) cubic interpolation matrix, float64, half-pixel
-    (``align_corners=False``) source coordinates."""
+def _cubic_matrix_np(in_size: int, out_size: int, a: float,
+                     align_corners: bool) -> np.ndarray:
+    """:func:`_resize_matrix_np`, every argument given (its cache key)."""
     if in_size == out_size:
         return np.eye(in_size)
     M = np.zeros((out_size, in_size), dtype=np.float64)
-    src = (np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5
+    if align_corners and out_size > 1:
+        src = np.arange(out_size) * ((in_size - 1) / (out_size - 1))
+    else:
+        src = (np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5
     base = np.floor(src).astype(np.int64)
     frac = src - base
     for tap in range(-1, 3):
@@ -44,24 +57,34 @@ def _resize_matrix_np(in_size: int, out_size: int,
     return M
 
 
-def resize_matrix(in_size: int, out_size: int, dtype, device):
+def resize_matrix(in_size: int, out_size: int, dtype, device,
+                  a: float = -0.75, align_corners: bool = False):
     """:func:`_resize_matrix_np` as a tensor."""
-    return torch.as_tensor(_resize_matrix_np(in_size, out_size),
+    return torch.as_tensor(_resize_matrix_np(in_size, out_size, a,
+                                             align_corners),
                            dtype=dtype, device=device)
 
 
-def resize_bicubic_nchw(x, out_hw):
+def resize_bicubic_nchw(x, out_hw, a: float = -0.75,
+                        align_corners: bool = False):
     """Bicubic resize of the last two axes of ``[..., H, W]``: first along
     H, then along W (the order of the JAX einsums)."""
-    My = resize_matrix(x.shape[-2], out_hw[0], x.dtype, x.device)
-    Mx = resize_matrix(x.shape[-1], out_hw[1], x.dtype, x.device)
+    My = resize_matrix(x.shape[-2], out_hw[0], x.dtype, x.device, a,
+                       align_corners)
+    Mx = resize_matrix(x.shape[-1], out_hw[1], x.dtype, x.device, a,
+                       align_corners)
     y = torch.einsum("oh,...hw->...ow", My, x)
     return torch.einsum("pw,...ow->...op", Mx, y)
 
 
-def resize_bicubic_nhwc(x, out_hw):
+# the JAX package's name for the resize of the last two axes
+resize_bicubic = resize_bicubic_nchw
+
+
+def resize_bicubic_nhwc(x, out_hw, a: float = -0.75,
+                        align_corners: bool = False):
     """Bicubic resize of an NHWC tensor on its H and W axes."""
-    y = resize_bicubic_nchw(x.permute(0, 3, 1, 2), out_hw)
+    y = resize_bicubic_nchw(x.permute(0, 3, 1, 2), out_hw, a, align_corners)
     return y.permute(0, 2, 3, 1)
 
 

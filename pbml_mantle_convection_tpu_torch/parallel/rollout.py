@@ -11,7 +11,9 @@ on its own instead:
   ``engine.multi_step``, one after another (JAX's ``lax.map`` at a local
   batch above 1), so on the card each simulation-step is the fused
   executor's 4 ``layer_stack`` + 1 ``trunk`` + 1 ``curl_advect_epilogue``
-  launches;
+  launches (+ 1 ``advect_diffuse_step_fused`` in place of the epilogue
+  for the heads it does not take: ``blurr``, ``p_pred``, ``mae``/
+  ``mass``, whose p each simulation's state carries);
 * each simulation advances with its OWN dt, the same bits as a
   standalone B = 1 rollout of it;
 * no collective runs during the rollout; at its end one ``all_gather``

@@ -1,0 +1,1 @@
+from . import advection, viscosity  # noqa: F401

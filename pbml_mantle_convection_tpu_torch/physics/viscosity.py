@@ -15,15 +15,20 @@ def _log(a):
     return torch.log(a) if isinstance(a, torch.Tensor) else math.log(a)
 
 
-def fk_viscosity(gamma, beta, z, T):
-    """eta = exp(ln(gamma)*(-T) + ln(beta)*z).
+def fk_viscosity(gamma, beta, z, T, Tref=0.0, zref=0.0):
+    """eta = exp(ln(gamma)*(Tref - T) + ln(beta)*(z - zref)).
 
     gamma is the temperature viscosity contrast (fkt), beta the depth
     contrast (fkp): floats, or tensors that broadcast against T (one
     value per sample, as the datasets pass them); ``z`` is the depth
-    coordinate (the reference passes ``1 - yc``).
+    coordinate (the reference passes ``1 - yc``); ``Tref`` and ``zref``
+    the reference temperature and depth (floats; 0, as the reference
+    calls it).
     """
-    return torch.exp(_log(gamma) * (0.0 - T) + _log(beta) * z)
+    # no subtraction at zref = 0 (z - 0 is z): the viscosity of every
+    # step launches no extra elementwise kernel for it
+    dz = z if zref == 0.0 else z - zref
+    return torch.exp(_log(gamma) * (Tref - T) + _log(beta) * dz)
 
 
 def fk_viscosity_clipped(gamma: float, beta: float, z, T, lo=1e-8, hi=1.0):

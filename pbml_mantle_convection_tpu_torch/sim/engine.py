@@ -22,11 +22,12 @@ Per step: the Stokes solve, the energy sources, the energy step
 (``ops/advect_kernel.py``: one CUDA call on the card), core cooling, BC
 stamping and the clip to [0, 2]. In ML/ML_STOKES with Di = 0 and no core
 cooling, and with the fused executor (``models/fast_path.py``) of a
-network without ``blurr`` as the surrogate, the step is instead 4
-``layer_stack`` (stem, the grouped branches, merges 2 and 3) + 1
-``trunk`` + 1 ``curl_advect_epilogue`` kernel calls plus a few
-elementwise ops; with ``blurr`` the executor's 4 + 1, the blurred curl
-head and the energy step (4 + 1 + 0 + 1). Nothing
+plain curl head (no ``blurr``, no ``p_pred``) as the surrogate, the step
+is instead 4 ``layer_stack`` (stem, the grouped branches, merges 2 and
+3) + 1 ``trunk`` + 1 ``curl_advect_epilogue`` kernel calls plus a few
+elementwise ops; with ``blurr``, ``p_pred`` or the ``mae``/``mass``
+heads the executor's 4 + 1, the module's head and the energy step
+(4 + 1 + 0 + 1). Nothing
 in a step of the surrogate modes reads a value back to the host, so
 :meth:`SimEngine.multi_step` queues N steps without a round trip; the PT
 solve reads its residual once per ``check_every`` iterations, and the
@@ -70,7 +71,7 @@ from ..ops.epilogue_kernel import curl_advect_epilogue, epilogue_consts
 from ..ops.stencils import stamp_temperature_bc
 from ..physics.advection import stability_dt, viscous_dissipation
 from ..physics.viscosity import fk_viscosity
-from .stepper import TimeStepper
+from .stepper import TimeStepper, plain_curl_head
 
 MODES = ("ML", "ML_STOKES", "ML_PRE", "GAIA")
 # 4-component radioactive-decay constants (prepare_gaia_ini.py:81-92).
@@ -154,15 +155,17 @@ class SimEngine:
         # GAIA's FK viscosity is unclipped; depth 1 - yc on the device
         self._depth = 1.0 - stepper._static.yc_feat * COORD_SCALE
         # the fused epilogue covers ML/ML_STOKES with Di = 0 and no core
-        # cooling, when the surrogate is the fused executor without blurr
-        # (the epilogue takes the raw stream function: it would skip the
-        # blur; JAX's engine gates it off the same way, engine.py:187);
+        # cooling, when the surrogate is the fused executor of a plain
+        # curl head (the epilogue takes the raw stream function: it would
+        # skip a blur and drop p, and the mae/mass heads have none; JAX's
+        # engine gates them off the same way, engine.py:184-188);
         # stokes_psi also gates B = 1 per step
         self._epi = None
         fn = stepper.apply_fn
         if (mode in ("ML", "ML_STOKES") and Di == 0.0 and not core_cool
                 and process_group is None
-                and hasattr(fn, "apply_psi_from_T") and not fn.m.blurr):
+                and hasattr(fn, "apply_psi_from_T")
+                and plain_curl_head(fn.m)):
             self._epi = epilogue_consts(stepper._metrics, fn.m.a_bound,
                                         stepper.cn_max)
 

@@ -26,6 +26,11 @@ class Grid:
     aspect: float = 4.0
 
     @property
+    def n_layers(self) -> int:
+        """Interior layers, H - 2 (126 on the 128-row grid)."""
+        return self.H - 2
+
+    @property
     def dy(self) -> float:
         """Interior grid spacing 1/(H-2); dx == dy by construction."""
         return 1.0 / (self.H - 2)

@@ -44,6 +44,14 @@ NO_ROLLOUT = {
 }
 
 
+def plain_curl_head(m) -> bool:
+    """Whether ``m``'s head is the curl of its one output channel with
+    nothing more (no ``blurr``, no ``p_pred``, not the ``mae``/``mass``
+    heads): the head the fused curl + advection epilogue computes."""
+    return (m.loss_type not in ("mae", "mass") and not m.blurr
+            and not m.p_pred)
+
+
 class StaticFields(NamedTuple):
     """Per-grid constant feature planes, (H, W) each."""
 
@@ -210,13 +218,12 @@ class TimeStepper:
                 u, v, p = fn.apply_from_T(T, V)
             else:
                 # each simulation through the B = 1 executor in turn, as
-                # the JAX stepper's lax.map does (stepper.py:212-228); the
-                # executor has no pressure output
+                # the JAX stepper's lax.map does (stepper.py:212-228),
+                # each one's p stacked with ``p_pred``
                 outs = [fn.apply_from_T(T[i:i + 1], V[i:i + 1])
                         for i in range(T.shape[0])]
-                u = torch.cat([o[0] for o in outs])
-                v = torch.cat([o[1] for o in outs])
-                p = None
+                u, v, p = (torch.cat(f) if f[0] is not None else None
+                           for f in zip(*outs))
         else:
             x, V = assemble_fluidnet_input(T, self._static, self.params)
             u, v, p = self.apply_fn(x)
@@ -225,10 +232,11 @@ class TimeStepper:
     @torch.no_grad()
     def stokes_psi(self, T):
         """(psi, V, scaler) for the fused curl + advection epilogue when
-        ``apply_fn`` is the fused executor of a network without ``blurr``
-        and B = 1; None otherwise."""
+        ``apply_fn`` is the fused executor of a plain curl head (no
+        ``blurr``, no pressure output) and B = 1; None otherwise (as the
+        JAX stepper's gate, stepper.py:248-252)."""
         fn = self._bound_fast()
-        if fn is None or T.shape[0] != 1 or fn.m.blurr:
+        if (fn is None or T.shape[0] != 1 or not plain_curl_head(fn.m)):
             return None
         V = viscosity(T, self._static, self.params)
         return fn.apply_psi_from_T(T, V), V, self.scaler

@@ -1021,3 +1021,91 @@ def test_cuda_layer_stacks_refuse_mixed_activations(cuda):
     x = torch.randn(16, 32, 40, device=cuda)
     with pytest.raises(ValueError, match="differ"):
         layer_stacks([x, x], [a, b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_pad", [False, True])
+@pytest.mark.parametrize("c_o", [1, 2, 3])
+def test_cuda_merge3_of_every_head_matches_plain(cuda, c_o, zero_pad):
+    """Merge 3 as the executor runs it for each head (no GroupNorm, no
+    activation; c_o 1: the curl head, 2: curl + p or mae/mass, 3:
+    mae/mass + p, the output tile's last 8 - c_o columns zero weights) at
+    128×506 and at the ragged 30×45, within 1e-4 of max |plain| (also on
+    the boundary ring alone); one launch counted; the same bits twice."""
+    g = torch.Generator().manual_seed(30 + c_o)
+    for H, W in ((128, 506), (30, 45)):
+        sw = _random_stack(16, c_o, 1, 1, False, False, seed=12 + c_o,
+                           device=cuda, zero_pad=zero_pad)
+        assert sw.c_o == c_o and not (sw.use_gn or sw.use_act)
+        x = torch.randn(16, H, W, generator=g).to(cuda)
+        n0 = layer_stack.launches
+        y, _ = layer_stack(x, sw)
+        assert layer_stack.launches == n0 + 1
+        y2, _ = layer_stack(x, sw)
+        ref, _ = layer_stack_plain(x, sw)
+        torch.cuda.synchronize()
+        assert y.shape == (c_o, H, W)
+        assert _rel(y, ref) <= 1e-4
+        assert torch.equal(y, y2)
+        edge = torch.ones(H, W, dtype=torch.bool, device=cuda)
+        edge[2:-2, 2:-2] = False
+        assert _rel(y[:, edge], ref[:, edge]) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss_type,p_pred,r_p", [
+    ("mae", True, "learned"), ("curl", True, "learned"),
+    ("mass", False, "zeros")])
+def test_cuda_head_rollout_through_the_kernels(cuda, loss_type, p_pred, r_p):
+    """The flagship's widths with the ``mae``/``mass`` heads or ``p_pred``
+    at 128×506, B = 1: the fused executor (merge 3 at c_o 2 or 3), no
+    fused epilogue, 4 ``layer_stack`` + 1 ``trunk`` + 0 + 1
+    ``advect_diffuse_step_fused`` launches per step; one forward's u, v
+    (and p) within 1e-4 of the module's, and 10 steps within
+    chip_smoke.py's TOL_ROLLOUT of the module path, p carried in the
+    state."""
+    from pbml_mantle_convection_tpu_torch.cli.benchmark import (
+        initial_temperature)
+    from pbml_mantle_convection_tpu_torch.constants import SimParams
+    from pbml_mantle_convection_tpu_torch.models.fast_path import (
+        FastNewFluidNet)
+    from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet
+    from pbml_mantle_convection_tpu_torch.sim.engine import SimEngine
+    from pbml_mantle_convection_tpu_torch.sim.stepper import TimeStepper
+    H, W, K = 128, 506, 10
+    c_o = (1 if loss_type == "curl" else 2) + p_pred
+    grid = Grid(H=H, W=W, aspect=(W - 2) / (H - 2))
+    model = NewFluidNet(levels=5, c_i=7, c_h=16, c_o=c_o, act_fn="gelu",
+                        r_p=r_p, loss_type=loss_type, repeats=6, f=5,
+                        p_pred=p_pred, seed=0, device=cuda)
+    fast = FastNewFluidNet(model, H, W)
+    assert fast.merge3.c_o == c_o
+    x = torch.randn(1, H, W, 7, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        got, want = fast(x.to(cuda)), model(x.to(cuda))
+    assert (got[2] is None) == (not p_pred)
+    for a, b in zip(got, want):
+        if b is not None:
+            assert _rel(a, b) <= 1e-4
+    finals = []
+    wrappers = (layer_stack, trunk, curl_advect_epilogue,
+                advect_diffuse_step_fused)
+    for apply_fn in (fast, model):
+        eng = SimEngine(TimeStepper(grid, SimParams(3.0, 1e8, 10.0),
+                                    apply_fn, cn_max=0.99, device=cuda))
+        assert eng._epi is None
+        before = [fn.launches for fn in wrappers]
+        state = eng.multi_step(eng.init_state(initial_temperature(grid)),
+                               K)[0]
+        torch.cuda.synchronize()
+        got = [fn.launches - n for fn, n in zip(wrappers, before)]
+        fused = apply_fn is fast
+        assert got == [4 * K * fused, K * fused, 0, K]
+        assert bool(torch.isfinite(state.T).all())
+        assert bool(state.p.abs().max() > 0) == p_pred
+        finals.append(state)
+    names = [("T", 1e-3), ("u", 2e-2), ("v", 2e-2)] + [("p", 2e-2)] * p_pred
+    for name, tol in names:
+        k, p = getattr(finals[0], name), getattr(finals[1], name)
+        rel = float((k - p).abs().max() / p.abs().max())
+        assert rel <= tol, (name, rel)

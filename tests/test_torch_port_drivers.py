@@ -26,6 +26,12 @@ JAX package's, on the CPU.
    rollout, which JAX's stepper fails too; no card without ``--device
    cpu``). The parser's default ``-s 1``, ``-net fluidnet`` and ``-net
    vit`` against the JAX CLI: tests/test_torch_port_cli_item6.py.
+4. ROADMAP §3 fault 12: the port's ``--fast 1`` raised for NewFluidNets
+   the JAX CLI runs. Now ``-f 32`` and ``-k 3`` (the module: the
+   function JAX's executor computes on its standard path), ``-pp 1`` and
+   ``-lt mae`` (the fused executor's other heads) run, each with its
+   route line, against the JAX CLI's ``--fast 1`` at the tolerances of
+   (3), the weights through each package's ``--nn_dir``.
 """
 
 import os
@@ -41,6 +47,8 @@ import jax.numpy as jnp  # noqa: E402
 from pbml_mantle_convection_tpu.cli import rollout as jcli  # noqa: E402
 from pbml_mantle_convection_tpu.constants import SimParams as JParams  # noqa: E402
 from pbml_mantle_convection_tpu.models import NewFluidNet as JNewFluidNet  # noqa: E402
+from pbml_mantle_convection_tpu.models.registry import (  # noqa: E402
+    ModelConfig as JConfig, build_model as j_build)
 from pbml_mantle_convection_tpu.models.unet import Unet as JUnet  # noqa: E402
 from pbml_mantle_convection_tpu.sim import gaia_native as jnative  # noqa: E402
 from pbml_mantle_convection_tpu.sim.engine import SimEngine as JEngine  # noqa: E402
@@ -346,6 +354,74 @@ def test_rollout_cli_matches_the_jax_cli(tmp_path, nn_dirs, r_p,
     fast = _pickles(runs["1"], "ML_STOKES")
     np.testing.assert_allclose(fast["T_vec"], got["T_vec"], rtol=1e-5)
     np.testing.assert_allclose(fast["t_vec"], got["t_vec"], rtol=1e-4)
+
+
+# fault 12: flags the port's --fast 1 refused, the route each takes, and
+# the network's (c_h, k, loss_type, p_pred)
+FAULT12 = {
+    "f32": (["-f", "32"], "module", (32, 5, "curl", False)),
+    "k3": (["-k", "3"], "module", (8, 3, "curl", False)),
+    "pp1": (["-pp", "1"], "fused executor", (8, 5, "curl", True)),
+    "mae": (["-lt", "mae"], "fused executor", (8, 5, "mae", False)),
+}
+
+
+def _write_nn_dir(d, weights, jax_ckpt):
+    """A Trainer directory with a two-epoch loss log (epoch 0 is the
+    best) and ``weights`` as epoch 0's checkpoint of one package."""
+    d.mkdir()
+    (d / "fluidnet_uvpT.txt").write_text(
+        LOG_HEADER + "".join(f"{e},[0.5, 0.4],[0.6, 0.5],0.001\n"
+                             for e in range(2)))
+    ckpt = str(d / "0_fluidnet_uvp.ckpt")
+    if jax_ckpt:
+        jsave_checkpoint(ckpt, {"params": weights, "epoch": 0})
+    else:
+        save_checkpoint(ckpt, {"model": from_jax_params(weights),
+                               "epoch": 0})
+
+
+@pytest.mark.parametrize("case", sorted(FAULT12))
+def test_rollout_cli_fast_runs_what_jax_runs(tmp_path, case, monkeypatch,
+                                             capsys):
+    flags, route, (c_h, k, loss_type, p_pred) = FAULT12[case]
+    jm = j_build(JConfig(network="newfluidnet", levels=2, c_h=c_h,
+                         repeats=1, kernel=k, loss_type=loss_type,
+                         p_pred=p_pred, r_p="learned", dtype=jnp.float32))
+    w = jax.tree.map(np.asarray, jax.jit(jm.init)(
+        jax.random.PRNGKey(13), jnp.zeros((1, 16, 24, 7), jnp.float32)))
+    _write_nn_dir(tmp_path / "nn_jax", w, True)
+    _write_nn_dir(tmp_path / "nn_port", w, False)
+    argv = [a for a in TINY if a not in ("-f", "8")] + flags + [
+        "-m", "ML_STOKES", "-pad", "learned", "--max_steps", "6",
+        "--fast", "1"]
+    if "-f" not in flags:
+        argv += ["-f", "8"]
+    _, jrun = _run_cli(jcli.main, str(tmp_path / "jax"),
+                       argv + ["--engine", "jax", "--nn_dir",
+                               str(tmp_path / "nn_jax")], monkeypatch)
+    capsys.readouterr()
+    _, trun = _run_cli(tcli.main, str(tmp_path / "port"),
+                       argv + ["--device", "cpu", "--nn_dir",
+                               str(tmp_path / "nn_port")], monkeypatch)
+    routes = [ln for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("route: ")]
+    assert len(routes) == 1 and routes[0].startswith(f"route: {route}"), \
+        routes
+    assert os.path.basename(trun) == os.path.basename(jrun)
+    got, want = _pickles(trun, "ML_STOKES"), _pickles(jrun, "ML_STOKES")
+    _no_torch(got)
+    assert len(got["T_vec"]) == len(want["T_vec"]) == 6
+    np.testing.assert_allclose(got["T_vec"], want["T_vec"], rtol=1e-5)
+    np.testing.assert_allclose(got["t_vec"], want["t_vec"], rtol=1e-4)
+    assert set(got["snapshots"]) == set(want["snapshots"])
+    # the pressure JAX records is the port's: the network's p with
+    # p_pred, the state's zeros without
+    for a, b in zip(got["snapshots"]["P"], want["snapshots"]["P"]):
+        b = np.asarray(b)
+        assert bool(np.abs(b).max() > 0) == p_pred
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-4 * max(np.abs(b).max(), 1e-30))
 
 
 def test_rollout_cli_native_matches_the_jax_cli(tmp_path, nn_dirs,

@@ -18,7 +18,19 @@ float64:
    (each ``sin(30·)`` multiplies a rounding error by up to 30; for
    ``gelu`` the same two read 4.6e-18 and 3.8e-15). So, as for the
    ``sine`` forward in tests/test_torch_port_activations.py, the bounds
-   are 25× JAX's own spread: ``SINE_STEP_TOL``.
+   are 25× JAX's own spread: ``SINE_STEP_TOL``;
+5. the last public names (ROADMAP queue 1 item 11): the grid constants
+   and ``dim_raq``/``dim_fkt``/``dim_fkp`` (≤1e-15, and the inverses of
+   ``nondim_*``), ``Grid.n_layers``, ``fk_viscosity``'s ``Tref``/``zref``
+   (≤1e-14; with the defaults bitwise the function it was, and
+   ``fk_viscosity_clipped`` with them), and ``resize_bicubic`` /
+   ``resize_bicubic_nhwc`` with ``a`` ∈ {-0.5, -0.75} and both
+   ``align_corners`` (matrices bitwise, resizes ≤1e-14), the default
+   matrix one cache entry however it is asked for;
+6. every name the JAX package's ``__init__.py`` files export imports
+   from the port's package of the same path (but ``utils``' XLA
+   ``TPU_COMPILER_OPTIONS`` and ``tpu_jit``), as the same object as the
+   port module's own.
 """
 
 import dataclasses
@@ -34,6 +46,7 @@ from pbml_mantle_convection_tpu import constants as jc  # noqa: E402
 from pbml_mantle_convection_tpu.cli import train as jtrain  # noqa: E402
 from pbml_mantle_convection_tpu.models.registry import (  # noqa: E402
     ModelConfig as JConfig, build_model as j_build)
+from pbml_mantle_convection_tpu.ops import resize as jresize  # noqa: E402
 from pbml_mantle_convection_tpu.physics import viscosity as jvisc  # noqa: E402
 from pbml_mantle_convection_tpu.sim import grid as jgrid  # noqa: E402
 from pbml_mantle_convection_tpu.train import train_step as jts  # noqa: E402
@@ -42,6 +55,7 @@ from pbml_mantle_convection_tpu_torch import constants as tc  # noqa: E402
 from pbml_mantle_convection_tpu_torch.cli import train  # noqa: E402
 from pbml_mantle_convection_tpu_torch.models.registry import (  # noqa: E402
     build_model)
+from pbml_mantle_convection_tpu_torch.ops import resize as tresize  # noqa: E402
 from pbml_mantle_convection_tpu_torch.physics import viscosity as tvisc  # noqa: E402
 from pbml_mantle_convection_tpu_torch.sim import grid as tgrid  # noqa: E402
 from pbml_mantle_convection_tpu_torch.train import train_step as tts  # noqa: E402
@@ -104,6 +118,146 @@ def test_grid_host_coordinates_and_default_grid():
     np.testing.assert_array_equal(d.yc_np, jd.yc_np)
     from pbml_mantle_convection_tpu_torch.sim import DEFAULT_GRID
     assert DEFAULT_GRID is d
+
+
+def test_grid_constants_and_dimensionalizations_match_jax():
+    for name in ("GRID_H", "GRID_W", "ASPECT_RATIO", "N_LAYERS"):
+        assert getattr(tc, name) == getattr(jc, name), name
+        assert type(getattr(tc, name)) is type(getattr(jc, name)), name
+    g = tgrid.Grid(H=tc.GRID_H, W=tc.GRID_W, aspect=tc.ASPECT_RATIO)
+    assert g.n_layers == jgrid.Grid().n_layers == tc.N_LAYERS == 126
+    for H in (20, 256):
+        assert tgrid.Grid(H=H, W=40).n_layers == jgrid.Grid(H=H,
+                                                            W=40).n_layers
+    x = np.random.default_rng(2).random(64)
+    for name in ("raq", "fkt", "fkp"):
+        dim, jdim = getattr(tc, f"dim_{name}"), getattr(jc, f"dim_{name}")
+        np.testing.assert_allclose(dim(x), jdim(x), rtol=1e-15, atol=0)
+        assert dim(0.25) == jdim(0.25)
+        np.testing.assert_allclose(getattr(tc, f"nondim_{name}")(dim(x)), x,
+                                   rtol=1e-12, atol=1e-14)
+
+
+def test_fk_viscosity_reference_state_matches_jax():
+    g = tgrid.Grid(H=16, W=40)
+    T = np.random.default_rng(3).random((2, 16, 40))
+    z, Tt, zt = 1.0 - g.yc, torch.as_tensor(T), torch.as_tensor(1.0 - g.yc)
+    for gamma, beta in ((1e8, 10.0), (1e6, 1.0)):
+        for Tref, zref in ((0.5, 0.0), (0.0, 0.3), (0.7, 0.6)):
+            want = jvisc.fk_viscosity(gamma, beta, jnp.asarray(z),
+                                      jnp.asarray(T), Tref, zref)
+            got = tvisc.fk_viscosity(gamma, beta, zt, Tt, Tref=Tref,
+                                     zref=zref)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-14, atol=0)
+        # the defaults: bitwise the law as it was, exp(ln γ·(0 - T) +
+        # ln β·z), in each dtype, and the clipped law the stepper reads
+        for dt in (torch.float64, torch.float32):
+            T_, z_ = Tt.to(dt), zt.to(dt)
+            old = torch.exp(np.log(gamma) * (0.0 - T_) + np.log(beta) * z_)
+            new = tvisc.fk_viscosity(gamma, beta, z_, T_)
+            assert torch.equal(new, old)
+            assert torch.equal(tvisc.fk_viscosity(gamma, beta, z_, T_, 0.0,
+                                                  0.0), old)
+            assert torch.equal(
+                tvisc.fk_viscosity_clipped(gamma, beta, z_, T_),
+                torch.clamp(old, 1e-8, 1.0))
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("a", [-0.5, -0.75])
+def test_resize_bicubic_arguments_match_jax(a, align_corners):
+    rng = np.random.default_rng(4)
+    for (h, w), out in (((8, 31), (16, 62)), ((16, 63), (128, 506)),
+                        ((12, 20), (5, 7))):
+        for n_in, n_out in ((h, out[0]), (w, out[1])):
+            np.testing.assert_array_equal(
+                tresize._resize_matrix_np(n_in, n_out, a, align_corners),
+                jresize._resize_matrix_np(n_in, n_out, a, align_corners))
+        x = rng.normal(size=(2, 3, h, w))
+        want = jresize.resize_bicubic(jnp.asarray(x), out, a, align_corners)
+        got = tresize.resize_bicubic(torch.as_tensor(x), out, a=a,
+                                     align_corners=align_corners)
+        scale = float(np.abs(np.asarray(want)).max())
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-14 * scale)
+        xn = rng.normal(size=(2, h, w, 3))
+        want = jresize.resize_bicubic_nhwc(jnp.asarray(xn), out, a,
+                                           align_corners)
+        got = tresize.resize_bicubic_nhwc(torch.as_tensor(xn), out, a,
+                                          align_corners)
+        assert got.shape == (2, *out, 3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-14 * float(np.abs(want).max()))
+    # the default matrix, however it is asked for, is one cache entry:
+    # the one the trunk kernel's tap tables and resize_matrix read
+    from pbml_mantle_convection_tpu_torch.ops.merge_kernel import _taps
+    before = tresize._cubic_matrix_np.cache_info()
+    m = tresize._resize_matrix_np(63, 506)
+    assert tresize._resize_matrix_np(63, 506, -0.75, False) is m
+    assert tresize._resize_matrix_np(63, 506, a=-0.75) is m
+    _taps(63, 506)
+    after = tresize._cubic_matrix_np.cache_info()
+    assert after.currsize - before.currsize <= 1
+    np.testing.assert_array_equal(
+        tresize.resize_matrix(63, 506, torch.float64, "cpu").numpy(), m)
+
+
+# the JAX package's __init__.py re-exports, by package; utils' XLA
+# compiler options (utils/jit.py) have no counterpart
+JAX_ONLY = {"utils": {"TPU_COMPILER_OPTIONS", "tpu_jit"}}
+PACKAGES = ("", "models", "train", "data", "utils", "ops", "physics", "sim",
+            "parallel")
+
+
+def _exports(pkg):
+    """The names the __init__.py of ``pkg`` imports (its re-exports)."""
+    import ast
+    import importlib
+    from pathlib import Path
+    mod = importlib.import_module(pkg)
+    tree = ast.parse(Path(mod.__file__).read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets}
+    return names
+
+
+@pytest.mark.parametrize("sub", PACKAGES, ids=[s or "top" for s in PACKAGES])
+def test_package_exports_match_jax(sub):
+    import importlib
+    import subprocess
+    import sys
+    jname = "pbml_mantle_convection_tpu" + (f".{sub}" if sub else "")
+    tname = "pbml_mantle_convection_tpu_torch" + (f".{sub}" if sub else "")
+    want = _exports(jname) - JAX_ONLY.get(sub, set())
+    assert want, jname
+    assert _exports(tname) == want
+    jmod, tmod = importlib.import_module(jname), importlib.import_module(tname)
+    for name in sorted(want):
+        got = getattr(tmod, name)
+        assert type(got) is not type(jax) or got.__name__.startswith(
+            "pbml_mantle_convection_tpu_torch."), name
+        j = getattr(jmod, name)
+        if isinstance(j, str):
+            assert got == j, name          # __version__
+        elif hasattr(j, "__module__") and not isinstance(j, type(jax)):
+            # each export is the port module's own object of that name
+            src = importlib.import_module(
+                j.__module__.replace("pbml_mantle_convection_tpu",
+                                     "pbml_mantle_convection_tpu_torch", 1))
+            assert getattr(src, name) is got, name
+    # `from <package> import <names>` in a fresh interpreter: no JAX
+    # loaded, no kernel built
+    code = (f"import sys\nfrom {tname} import {', '.join(sorted(want))}\n"
+            "from pbml_mantle_convection_tpu_torch.ops import _cuda\n"
+            "assert _cuda.library.cache_info().currsize == 0\n"
+            "assert not any(m.split('.')[0] in ('jax', 'flax', "
+            "'pbml_mantle_convection_tpu') for m in sys.modules)\n")
+    subprocess.run([sys.executable, "-c", code], check=True)
 
 
 SINE_ARGV = ["-a", "sine", "-l", "2", "-f", "4", "-r", "1", "-p", "learned",

@@ -40,7 +40,10 @@ variant's three numbers and launches.
 ``--pad zeros`` runs the flagship with zero padding (the layer kernels'
 zero-padded instance) instead of learned padding; ``--act NAME`` with
 another activation of ``models/layers.py`` (the kernels' instance of
-it) instead of GELU.
+it) instead of GELU; ``--loss_type mae|mass`` and ``--p_pred 1`` with
+the rollout CLI's other heads (merge 3 at c_o 2 or 3; the fused leg
+then takes the energy-step kernel, as the engine gives these heads no
+fused epilogue).
 
 Runs (default): the flagship ML_STOKES rollout at 128×506 and 256×256,
 and ML_STOKES with core cooling, Di=0.5 and radioactive decay (the mode
@@ -237,9 +240,23 @@ def build_parser():
                    help="the flagship's activation (an act_fn of "
                         "models/layers.py; the layer kernels' instance "
                         "of it)")
+    p.add_argument("--loss_type", type=str, default="curl",
+                   choices=["curl", "mae", "mass"],
+                   help="the flagship's head, as the rollout CLI's -lt")
+    p.add_argument("--p_pred", type=int, default=0,
+                   help="1: the head also predicts p (the CLI's -pp)")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
     return p
+
+
+def head_arch(arch, loss_type: str, p_pred: bool) -> dict:
+    """``arch`` with the head ``loss_type`` (+ p with ``p_pred``) and the
+    c_o it needs (the registry's: 1 for the curl head, 2 for u, v; one
+    more for p)."""
+    c_o = (1 if loss_type == "curl" else 2) + bool(p_pred)
+    return {**arch, "loss_type": loss_type, "p_pred": bool(p_pred),
+            "c_o": c_o}
 
 
 def main(argv=None):
@@ -248,7 +265,8 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("torch_port_accuracy: no CUDA device (pass "
                          "--device cpu to run on the CPU)")
-    arch = {**ARCH, "r_p": args.pad, "act_fn": args.act}
+    arch = head_arch({**ARCH, "r_p": args.pad, "act_fn": args.act},
+                     args.loss_type, args.p_pred)
     weights = flagship_weights(args.seed, arch)
     out = []
     for run in args.run or RUNS:
@@ -258,6 +276,7 @@ def main(argv=None):
             raise SystemExit(f"torch_port_accuracy: mode {mode!r}: one of "
                              f"{sorted(MODES)}")
         rec = {"r_p": args.pad, "act_fn": args.act,
+               "loss_type": args.loss_type, "p_pred": bool(args.p_pred),
                **measure(weights, H, W, args.steps, mode, device=device,
                          arch=arch)}
         print(json.dumps(rec), flush=True)
