@@ -67,8 +67,9 @@ Run from the repository root, with no arguments::
    flagship ML_STOKES rollout (fused, module float32 and module TF32
    against the float64 module path with the energy step's plain version;
    the fused T-RMSE must stay below ``ACC_T_RMSE`` and the TF32 control
-   must not), the core-cooling Di=0.5 mode (printed, finite) and the
-   ``-pad zeros`` flagship (fused below ``ACC_T_RMSE``); each leg's
+   must not), the core-cooling Di=0.5 mode (``DI_STEPS`` = 100 steps,
+   printed, finite) and the ``-pad zeros`` flagship (fused below
+   ``ACC_T_RMSE``); each leg's
    launches per step are checked, and kept out of the kernels line;
 7. runs ``cli/benchmark.py --what rollout --batch 4`` at 128×506 (4B + B
    + 1 + 0 launches per step) and the same at B = 1;
@@ -121,7 +122,7 @@ Run from the repository root, with no arguments::
    the kernels line;
 11. runs the other models at 128×506 under PyTorch's default flags:
    (a) ``cli/rollout.py`` at its default ``-s 1`` (the symmetric
-   flagship on the module path) for 300 steps, 0 + 0 + 0 + 1 launches per
+   flagship on the module path) for 100 steps, 0 + 0 + 0 + 1 launches per
    step, steps/s from sum(TS_vec), its forward against float64; (b) the
    ``blurr`` flagship through the fused executor, 4 + 1 + 0 + 1 per step
    (no fused epilogue: it would skip the blur), steps/s beside phase 3's,
@@ -170,7 +171,7 @@ Run from the repository root, with no arguments::
    ML_STOKES rollout of each (20 + 200 steps through ``SimEngine.
    multi_step`` with learned padding, 1 + 200 through ``rollout_torch``
    with zero padding; 4 + 1 + 1 + 0 launches per step, T finite; steps/s
-   beside phase 3's); (c) the 500-step fused T_rmse of the ``selu`` and
+   beside phase 3's); (c) the 200-step fused T_rmse of the ``selu`` and
    ``relu`` flagships against the float64 module path, below
    ``ACC_T_RMSE``;
 14. runs the rollout CLI's other heads at the flagship's width
@@ -184,9 +185,23 @@ Run from the repository root, with no arguments::
    ``-pp 1``, steps/s beside phase 3's and the curl head's through the
    same CLI; (c) ``--fast 1 -f 32`` and ``-k 3``: the module route, 0 +
    0 + 0 + 1 per step, steps/s; (d) the ``mae`` + ``p_pred`` flagship's
-   500-step fused T_rmse below ``ACC_T_RMSE``;
-15. prints one JSON line of per-kernel numbers (launches summed over
-   phases 3, 4, 5, 7, 12 (a)-(b) and 14 (b)-(c); the layer kernels' zero
+   200-step fused T_rmse below ``ACC_T_RMSE``;
+15. runs the port's four study tools through their ``main`` at cut
+   sizes (``run_studies``, ``STUDY_ARGV``): (a) the speedup study (GAIA,
+   GAIA-skip10, ML_STOKES, ML_PRE at 50×74, float64, 40 steps, 1000 PT
+   iterations): every row finite, 0 + 0 + 0 + 1 launches per step in each
+   mode, GAIA-skip10's final T-RMSE below ML_STOKES's (ML_PRE's
+   printed); (b) the reference-scale study at 128×506 (9 GAIA steps per
+   simulation, the flagship trained 2 epochs through the Trainer with a
+   restart at epoch 1): the restart epoch, 4 + 1 + 1 + 0 launches per
+   ML_STOKES step and 4 + 1 + 0 + 1 per ML_PRE step of the held-out
+   rollouts, the trained-vs-untrained margin; (c) the interleave
+   fidelity tool at 128×506 (40 steps, the native step every 10th): 4 +
+   1 + 1 + 0 in leg A, 4 + 1 + 0 + 1 in the native legs; (d) the
+   HBM-scale study ``--phase inline`` on a 311 MB host-resident store:
+   finite losses, the restart into epoch 1, no launch;
+16. prints one JSON line of per-kernel numbers (launches summed over
+   phases 3, 4, 5, 7, 12 (a)-(b), 14 (b)-(c) and 15; the layer kernels' zero
    instance, its launches from phase 3c alone, under ``zero_instance``,
    each (activation, padding) instance of phase 13, its launches from 13
    (b), under ``activation_instances``, and each (head, padding)
@@ -195,10 +210,11 @@ Run from the repository root, with no arguments::
    learned GELU curl instance's), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
-``--phase 10``, ``--phase 11``, ``--phase 12``, ``--phase 13`` or
-``--phase 14`` builds the kernels and runs phase 3 and then that phase
-alone (the drivers, the other models, the parallel paths, the
-activations or the heads, whose steps/s it prints beside phase 3's),
+``--phase 10``, ``--phase 11``, ``--phase 12``, ``--phase 13``,
+``--phase 14`` or ``--phase 15`` builds the kernels and runs phase 3 and
+then that phase alone (the drivers, the other models, the parallel
+paths, the activations, the heads or the study tools, whose steps/s it
+prints beside phase 3's),
 with their launch checks; it prints no result line::
 
     python3 chip_smoke.py --phase 12
@@ -1581,15 +1597,23 @@ def transolver_checks(counters, H=128, W=506, device="cuda"):
     attention_layouts(model, irregular, H, W, device)
 
 
-def accuracy_tool():
+def load_tool(stem):
+    """The module ``tools/<stem>.py``."""
     import importlib.util
     from pathlib import Path
-    path = Path(__file__).resolve().parent / "tools" / "torch_port_accuracy.py"
-    spec = importlib.util.spec_from_file_location("torch_port_accuracy",
-                                                  path)
+    path = Path(__file__).resolve().parent / "tools" / f"{stem}.py"
+    spec = importlib.util.spec_from_file_location(stem, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+# steps of phase 6's core-cooling Di=0.5 leg (a drift figure, no bound)
+DI_STEPS = 100
+
+
+def accuracy_tool():
+    return load_tool("torch_port_accuracy")
 
 
 def leg_launches(mode, path):
@@ -1609,20 +1633,21 @@ def leg_launches(mode, path):
     return want
 
 
-def run_accuracy(H=128, W=506, steps=500, device="cuda"):
+def run_accuracy(H=128, W=506, steps=500, device="cuda", di_steps=DI_STEPS):
     """Phase 6: the 500-step T-RMSE against the float64 module path
     (``tools/torch_port_accuracy.py``): the flagship ML_STOKES rollout,
     whose fused path must read T_rmse < ACC_T_RMSE and whose TF32 control
-    must not, the core-cooling Di=0.5 mode, printed and checked finite,
+    must not, the core-cooling Di=0.5 mode (``di_steps``: its figure
+    measures drift and has no bound), printed and checked finite,
     and the ``-pad zeros`` flagship, whose fused path must read below
     ACC_T_RMSE too. Each leg's launches per step are checked
     (``leg_launches``); none of them goes into the kernels line."""
     acc = accuracy_tool()
     weights = acc.flagship_weights(0)
     recs = {}
-    for mode in ("ML_STOKES", acc.DI_MODE):
+    for mode, n in (("ML_STOKES", steps), (acc.DI_MODE, di_steps)):
         t0 = time.perf_counter()
-        rec = acc.measure(weights, H, W, steps, mode, device=device)
+        rec = acc.measure(weights, H, W, n, mode, device=device)
         print(json.dumps(rec))
         legs = {"f64": ("f64", rec["f64_launches_per_step"]),
                 **{name: (acc.VARIANTS[name][0],
@@ -1638,7 +1663,7 @@ def run_accuracy(H=128, W=506, steps=500, device="cuda"):
                                            "steps_per_s")]
             if not all(np.isfinite(nums)):
                 raise AssertionError(f"accuracy {mode}: {name} {rec[name]}")
-        print(f"accuracy {H}x{W} {mode}: {steps} steps, fused T_rmse "
+        print(f"accuracy {H}x{W} {mode}: {n} steps, fused T_rmse "
               f"{rec['fused']['T_rmse']:.3e}, float64 leg "
               f"{rec['f64_seconds']:.2f} s, launches per step checked, "
               f"{time.perf_counter() - t0:.1f} s")
@@ -1675,8 +1700,9 @@ def run_accuracy(H=128, W=506, steps=500, device="cuda"):
                              f"{tf32:.3e} < {ACC_T_RMSE}: the bound no "
                              f"longer tells float32 from TF32")
     print(f"accuracy: fused T_rmse {fused:.3e} < {ACC_T_RMSE} <= TF32 "
-          f"control {tf32:.3e}; the Di=0.5 mode's fused T_rmse is "
-          f"{di['fused']['T_rmse'] / fused:.2f}x the flagship's")
+          f"control {tf32:.3e}; the Di=0.5 mode's fused T_rmse "
+          f"{di['fused']['T_rmse']:.3e} after {di_steps} steps (drift, no "
+          f"bound)")
 
 
 def run_batched(counters, B=4, H=128, W=506, steps=500, device="cuda"):
@@ -2631,7 +2657,7 @@ def run_train(counters, device="cuda"):
 # their float32 guard)
 OTHER_ARGV = ["-m", "ML_STOKES", "-raq", "3.0", "-fkt", "1e8", "-fkp", "10",
               "-l", "5", "-f", "16", "-r", "6", "-k", "5", "-pad", "learned"]
-OTHER_STEPS = 300
+OTHER_STEPS = 100
 # cli/benchmark.py's other networks: their experiments' widths, train batch
 OTHER_BENCH = {"fluidnet": (["-l", "5", "-r", "4"], 8),
                "multiscalenewfluidnet": (["-l", "4", "-r", "4"], 8),
@@ -3321,8 +3347,10 @@ def run_parallel(counters, bench_sps, device="cuda", steps=PAR_STEPS,
 ACT_PADS = ("learned", "zeros")
 ACT_WARMUP = 20          # fused steps before the timed ones
 ACT_STEPS = 200          # timed fused steps per (activation, padding)
-# (c): selu, NewFluidNet's default activation, and relu, which has a kink
+# (c): selu, NewFluidNet's default activation, and relu, which has a kink;
+# their T_rmse after this many steps (phase 6 holds the flagship's at 500)
 ACT_ACCURACY = ("selu", "relu")
+ACT_ACC_STEPS = 200
 # sine per layer: a kernel's error against float64 at most this many times
 # the plain float32 path's own error (the same decade)
 SINE_DECADE = 10.0
@@ -3485,7 +3513,7 @@ def act_rollout(counters, built, r_p, act, device="cuda"):
 
 
 def run_activations(counters, bench_sps, device="cuda", H=128, W=506,
-                    acc_steps=500):
+                    acc_steps=ACT_ACC_STEPS):
     """Phase 13: the layer kernels' instances of the seven activations
     (``act_fn`` of ``models/layers.py``), each with learned and zero
     padding, on the flagship at 128×506: (a) each instance's
@@ -3493,7 +3521,7 @@ def run_activations(counters, bench_sps, device="cuda", H=128, W=506,
     merges 2 and 3) and ``trunk`` against their plain versions, timed
     (``check_layer_kernels``; ``sine`` held per layer by
     ``sine_layer_checks``); (b) a fused ML_STOKES rollout of each
-    (``act_rollout``), steps/s beside phase 3's; (c) the 500-step T_rmse
+    (``act_rollout``), steps/s beside phase 3's; (c) the 200-step T_rmse
     of the fused ``selu`` and ``relu`` flagships against the float64
     module path (``tools/torch_port_accuracy.py``), below ``ACC_T_RMSE``.
     Returns the per-instance records for the kernels line:
@@ -3598,7 +3626,8 @@ def head_cli_leg(counters, name, argv, out_dir, want, route):
 
 
 def run_heads(counters, bench_sps, device="cuda", H=128, W=506,
-              steps=HEAD_STEPS, route_steps=ROUTE_STEPS, acc_steps=500):
+              steps=HEAD_STEPS, route_steps=ROUTE_STEPS,
+              acc_steps=ACT_ACC_STEPS):
     """Phase 14: the rollout CLI's other heads at the flagship's width
     (``-l 5 -r 6 -f 16 -k 5 -s 0``), 128×506, seeded weights:
     (a) the ``mae`` + ``p_pred`` (c_o 3) and curl + ``p_pred`` (c_o 2)
@@ -3615,7 +3644,7 @@ def run_heads(counters, bench_sps, device="cuda", H=128, W=506,
     1 + 0: its chunks and host copies are theirs);
     (c) ``--fast 1 -f 32`` and ``-k 3``: the module route (its line), 0 +
     0 + 0 + 1 per step, steps/s;
-    (d) the 500-step T_rmse of the ``mae`` + ``p_pred`` flagship, fused
+    (d) the 200-step T_rmse of the ``mae`` + ``p_pred`` flagship, fused
     and module float32 against the float64 module path
     (``tools/torch_port_accuracy.py``), the fused leg below
     ``ACC_T_RMSE``, 4 + 1 + 0 + 1 launches per step.
@@ -3715,6 +3744,206 @@ def run_heads(counters, bench_sps, device="cuda", H=128, W=506,
     return out, launch
 
 
+# phase 15: the four study tools at cut sizes (their flags; the grids
+# of (b)-(d) are the production 128×506, (a)'s JAX's coarse default)
+STUDY_ARGV = {
+    "speedup": ["--steps", "40", "--n-iter", "1000"],
+    # 9 steps: the least that leaves the cv store a snapshot (every 8th
+    # index past each simulation's 5 init snapshots); the fallback
+    # triples are three simulations whatever --n-train-sims
+    "refscale": ["--steps", "9", "--epochs", "2", "--n-train-sims", "2",
+                 "--n-iter", "1000"],
+    "interleave": ["--steps", "40", "--intervene", "10"],
+    # 4 × 100 snapshots of 128×506: 311 MB of float32 fields
+    "hbm": ["--phase", "inline", "--sims", "4", "--snaps", "100",
+            "--batch", "16", "--steps_cap", "4", "--pipeline_steps", "10"],
+}
+# launches per step of each leg (layer_stack, trunk, curl_advect_epilogue,
+# advect_diffuse_step_fused): the speedup study's surrogate is the module
+# (JAX's study runs model.apply), so the energy kernel alone; the
+# reference-scale and interleave rollouts run the fused executor, with
+# the epilogue in ML_STOKES and the energy kernel where the engine or the
+# native loop takes the surrogate's velocities
+MODULE_STEP = (0, 0, 0, 1)
+FUSED_STEP = (4, 1, 1, 0)
+EXECUTOR_STEP = (4, 1, 0, 1)
+
+
+def _per_step(t):
+    return dict(zip(("layer_stack", "trunk", "curl_advect_epilogue",
+                     "advect_diffuse_step_fused"), map(float, t)))
+
+
+def _finite_row(name, row):
+    bad = [k for k, v in row.items()
+           if isinstance(v, float) and not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{name}: not finite: {bad}")
+
+
+def _study_launches(counters, name, rows, extra):
+    """The counts since :func:`_zero` must be the rows' launches per step
+    times their steps, plus ``extra`` (warm-up steps, GAIA data); each
+    row's launches per step as the tool read them must be its ``want``.
+    ``rows``: [(row name, launches per step, steps, want per step)]."""
+    want = dict(extra)
+    for row, got, n, per in rows:
+        if got != _per_step(per):
+            raise AssertionError(f"{name} {row}: launches per step {got}, "
+                                 f"want {_per_step(per)}")
+        for k, v in _per_step(per).items():
+            want[k] = want.get(k, 0) + int(v) * n
+    return _launched(counters, want, name)
+
+
+def run_studies(counters, bench_sps, device="cuda", argv=None):
+    """Phase 15: the port's four study tools, each through its ``main``,
+    at cut sizes (``STUDY_ARGV``): (a) the speedup study (GAIA, GAIA-skip10,
+    ML_STOKES, ML_PRE at 50×74, float64): every row finite, the launches
+    per step 0 + 0 + 0 + 1 in each mode (GAIA, the skip and the module
+    surrogate), GAIA-skip10's final T-RMSE below ML_STOKES's (ML_PRE's
+    printed beside it); (b) the reference-scale study at 128×506 (the flagship
+    trained 2 epochs through the Trainer with a restart at epoch 1, then
+    held-out rollouts through the fused executor): the restart epoch,
+    4 + 1 + 1 + 0 launches per ML_STOKES step, 4 + 1 + 0 + 1 per ML_PRE
+    step, the trained-vs-untrained margin; (c) the interleave fidelity
+    tool at 128×506 (40 steps, the native step every 10th): 4 + 1 + 1 + 0
+    in leg A, 4 + 1 + 0 + 1 in the native legs; (d) the HBM-scale study
+    ``--phase inline`` on a 311 MB host-resident store (4 capped train
+    steps of the flagship at B = 16 per epoch): losses finite, the restart
+    into epoch 1, no kernel launch. Each tool's launches are read from
+    zero just after it. Returns the launches of (a)-(d) summed."""
+    import tempfile
+    argv = argv or STUDY_ARGV
+    t_phase = time.perf_counter()
+    launch = dict.fromkeys(counters, 0)
+
+    def add():
+        for k in launch:
+            launch[k] += counters[k].launches
+
+    dev = ["--device", device]
+    with tempfile.TemporaryDirectory() as root:
+        out = ["--out-dir", root]
+        # (a)
+        t0 = time.perf_counter()
+        _zero(counters)
+        rec = load_tool("torch_port_speedup_study").main(
+            argv["speedup"] + dev + out)
+        rows = rec["rows"]
+        for name, row in rows.items():
+            _finite_row(f"studies (a) {name}", row)
+        n = rec["steps"]
+        _study_launches(counters, "studies (a) speedup", [
+            (name, row["launches_per_step"], n, MODULE_STEP)
+            for name, row in rows.items()],
+            # each mode's warm-up step
+            {"advect_diffuse_step_fused": len(rows)})
+        add()
+        skip = next(k for k in rows if k.startswith("GAIA-skip"))
+        ml = rows["ML_STOKES"]["t_rmse"]
+        print(f"studies (a) speedup {rec['grid'][0]}x{rec['grid'][1]}, "
+              f"{n} steps: "
+              + ", ".join(f"{k} {r['wall_per_step'] * 1e3:.2f} ms/step "
+                          f"({r['speedup']:.2f}x) T-RMSE {r['t_rmse']:.3e}"
+                          for k, r in rows.items())
+              + f"; train loss {rec['train_loss']:.5f}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        # the solver-grade skip must beat the surrogate alone; ML_PRE's
+        # 100-iteration refinement from a surrogate trained for 160
+        # batches need not (a 18×26 CPU run ends 2× above ML_STOKES), so
+        # its standing is printed, not checked
+        if not rows[skip]["t_rmse"] < ml:
+            raise AssertionError(f"studies (a): {skip} T-RMSE "
+                                 f"{rows[skip]['t_rmse']:.3e} not below "
+                                 f"ML_STOKES's {ml:.3e}")
+        print(f"studies (a): ML_PRE T-RMSE {rows['ML_PRE']['t_rmse']:.3e} "
+              f"{'below' if rows['ML_PRE']['t_rmse'] < ml else 'not below'}"
+              f" ML_STOKES's {ml:.3e} (printed, not checked)")
+
+        # (b)
+        t0 = time.perf_counter()
+        _zero(counters)
+        rec = load_tool("torch_port_reference_scale_study").main(
+            argv["refscale"] + dev + out
+            + ["--run-dir", os.path.join(root, "refscale_run")])
+        half = max(1, rec["epochs"] // 2)
+        if rec["start_epoch_after_restart"] != half:
+            raise AssertionError(f"studies (b): restart at epoch "
+                                 f"{rec['start_epoch_after_restart']}")
+        rows = rec["rows"]
+        for name, row in rows.items():
+            _finite_row(f"studies (b) {name}", row)
+        n = rec["eval_steps"]
+        _study_launches(counters, "studies (b) reference scale", [
+            (name, row["launches_per_step"], n,
+             EXECUTOR_STEP if "ML_PRE" in name else FUSED_STEP)
+            for name, row in rows.items()],
+            # the GAIA ground truth: the training simulations and the
+            # held-out one, one energy step each per step
+            {"advect_diffuse_step_fused":
+                (len(rec["train_paras"]) * rec["steps"] + n)})
+        add()
+        print(f"studies (b) reference scale {rec['grid'][0]}x"
+              f"{rec['grid'][1]}: restart at epoch "
+              f"{rec['start_epoch_after_restart']}, "
+              + ", ".join(f"{k} T-RMSE {r['t_rmse']:.3e} ({r['wall_s']:.2f}"
+                          f" s)" for k, r in rows.items())
+              + f"; trained-vs-untrained margin {rec['margin']:.2f}x; "
+              f"data {rec['data_s']:.1f} s, training "
+              f"{rec['train_wall_s']:.1f} s; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # (c)
+        t0 = time.perf_counter()
+        _zero(counters)
+        rec = load_tool("torch_port_interleave_fidelity").main(
+            argv["interleave"] + dev + out + ["--json"])
+        legs = [("A", rec["A_launches_per_step"], rec["steps"],
+                 FUSED_STEP)]
+        for leg in ("B_native_interleave", "C_native_everystep"):
+            _finite_row(f"studies (c) {leg}", rec[leg])
+            legs.append((leg, rec[leg]["launches_per_step"],
+                         rec[leg]["steps"], EXECUTOR_STEP))
+        _study_launches(counters, "studies (c) interleave", legs, {})
+        add()
+        B, C = rec["B_native_interleave"], rec["C_native_everystep"]
+        print(f"studies (c) interleave {rec['grid'][0]}x{rec['grid'][1]}: "
+              f"B (native every {rec['intervene_ts']}) trace RMSE "
+              f"{B['trace_rmse']:.3e} over {B['steps']} steps, C (native "
+              f"every step) {C['trace_rmse']:.3e} over {C['steps']}; "
+              f"{B['s_per_step'] * 1e3:.2f} and "
+              f"{C['s_per_step'] * 1e3:.2f} ms/step; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # (d)
+        t0 = time.perf_counter()
+        _zero(counters)
+        rec = load_tool("torch_port_hbm_scale_study").main(
+            argv["hbm"] + dev + out
+            + ["--path", os.path.join(root, "hbm_store"),
+               "--run-dir", os.path.join(root, "hbm_run")])
+        _launched(counters, {}, "studies (d) hbm")
+        for k in ("losses_epoch0", "losses_epoch1"):
+            if not np.isfinite(rec[k]).all():
+                raise AssertionError(f"studies (d): {k} {rec[k]}")
+        if (rec["start_epoch0"], rec["start_epoch1"]) != (0, 1):
+            raise AssertionError(f"studies (d): epochs start at "
+                                 f"{rec['start_epoch0']}, "
+                                 f"{rec['start_epoch1']}")
+        print(f"studies (d) hbm: {rec['store_gb']} GB store, generated in "
+              f"{rec['store_open_s']} s; pipeline "
+              f"{rec['pipeline_ms_per_batch']} ms/batch "
+              f"({rec['pipeline_gbps']} GB/s); epoch 1 "
+              f"{rec['e2e_ms_per_step']} ms/step end to end over "
+              f"{rec['steps_measured']} of {rec['steps_per_epoch_full']} "
+              f"steps, peak {rec.get('peak_device_gb_epoch1')} GB on the "
+              f"card; {time.perf_counter() - t0:.1f} s")
+    print(f"studies: {time.perf_counter() - t_phase:.1f} s (bench_torch.py "
+          f"128x506 {bench_sps:.2f} steps/s in this run)")
+    return launch
+
+
 def run_phase(n: int) -> int:
     """``--phase n``: builds the kernels, runs phase 3
     (:func:`run_main_path`) and then phase ``n``."""
@@ -3733,7 +3962,7 @@ def run_phase(n: int) -> int:
 
 # the phases ``--phase`` runs after phase 3, by number
 PHASES = {10: "run_drivers", 11: "run_other_models", 12: "run_parallel",
-          13: "run_activations", 14: "run_heads"}
+          13: "run_activations", 14: "run_heads", 15: "run_studies"}
 
 
 def main(argv=None) -> int:
@@ -3828,6 +4057,8 @@ def main(argv=None) -> int:
     for k, inst in heads.items():
         rec[k]["head_instances"] = inst
     for k, n in n_heads.items():
+        launch[k] += n
+    for k, n in run_studies(counters, bench_sps[128, 506]).items():
         launch[k] += n
 
     floor = launch_floor(1, ENERGY_BLOCK)
