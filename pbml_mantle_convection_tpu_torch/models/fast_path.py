@@ -44,6 +44,7 @@ from ..ops.branch_kernel import (StackWeights, layer_stack, layer_stacks,
                                  pack_stack)
 from ..ops.merge_kernel import trunk, trunk_weights
 from ..physics.viscosity import fk_viscosity_clipped
+from ..utils.profiling import span
 from .fluidnet import NewFluidNet
 from .layers import BoundaryLearnedConvolution2D, fluid_layer_groups
 
@@ -199,13 +200,14 @@ class FastNewFluidNet:
         """(c_i, H, W) planar input → merge 3's raw (c_o, H, W) output:
         the stream function (and p) of the curl head, u, v (and p) of
         the ``mae``/``mass`` heads, before the mean subtraction."""
-        b_in, pyr = layer_stack(x, self.stem,
-                                pyramid=len(self.branches) - 1)
-        outs = layer_stacks([b_in, *(pyr or [])], self.branches)
-        y = trunk(outs[0], outs[1:], x, self.trunk)
-        y, _ = layer_stack(y, self.merge2)
-        y, _ = layer_stack(y, self.merge3)
-        return y
+        with span("pmc.executor"):
+            b_in, pyr = layer_stack(x, self.stem,
+                                    pyramid=len(self.branches) - 1)
+            outs = layer_stacks([b_in, *(pyr or [])], self.branches)
+            y = trunk(outs[0], outs[1:], x, self.trunk)
+            y, _ = layer_stack(y, self.merge2)
+            y, _ = layer_stack(y, self.merge3)
+            return y
 
     def __call__(self, x: torch.Tensor):
         """(1, H, W, c_i) NHWC input → (u, v, p|None), each (1, H, W)."""
@@ -239,13 +241,14 @@ class FastNewFluidNet:
 
     def input_from_T(self, T: torch.Tensor, V=None) -> torch.Tensor:
         """(1, H, W) temperature → (7, H, W) planar network input."""
-        if V is None:
-            V = fk_viscosity_clipped(self._in_params.fkt,
-                                     self._in_params.fkp, self._depth, T)
-        x = self._static_x.clone()
-        x[2] = visc_feature(V[0])
-        x[6] = T[0]
-        return x
+        with span("pmc.engine.input"):
+            if V is None:
+                V = fk_viscosity_clipped(self._in_params.fkt,
+                                         self._in_params.fkp, self._depth, T)
+            x = self._static_x.clone()
+            x[2] = visc_feature(V[0])
+            x[6] = T[0]
+            return x
 
     def apply_from_T(self, T: torch.Tensor, V=None):
         """(1, H, W) temperature (and its clipped viscosity, when the

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..ops.curl import curl_head_valid
 from ..ops.slice_attention import slice_attention
+from ..utils.profiling import span
 from .layers import (Conv2dTorch, LayerNorm, float32_convs, get_activation,
                      keep_float32)
 
@@ -110,15 +111,18 @@ class _PhysicsAttention(nn.Module):
 
     def forward(self, x):
         B, N, _ = x.shape
-        fx_mid, x_mid = self.project(x)
-        temp = self.temperature
-        if self.clamp_temperature:
-            temp = torch.clamp(temp, 0.1, 5.0)
-        args = (fx_mid, x_mid, self.in_project_slice.weight.t(),
-                self.in_project_slice.bias, temp, self.to_q.weight.t(),
-                self.to_k.weight.t(), self.to_v.weight.t())
-        out = slice_attention(*args)
-        return self.to_out(out.transpose(1, 2).reshape(B, N, -1))
+        with span("pmc.attn.project"):
+            fx_mid, x_mid = self.project(x)
+        with span("pmc.attn.slice"):
+            temp = self.temperature
+            if self.clamp_temperature:
+                temp = torch.clamp(temp, 0.1, 5.0)
+            args = (fx_mid, x_mid, self.in_project_slice.weight.t(),
+                    self.in_project_slice.bias, temp, self.to_q.weight.t(),
+                    self.to_k.weight.t(), self.to_v.weight.t())
+            out = slice_attention(*args)
+        with span("pmc.attn.out"):
+            return self.to_out(out.transpose(1, 2).reshape(B, N, -1))
 
 
 class PhysicsAttentionIrregularMesh(_PhysicsAttention):
@@ -246,10 +250,19 @@ class TransolverBlock(nn.Module):
             self.mlp2 = Dense(hidden_dim, out_dim, rng)
 
     def forward(self, fx):
-        fx = self.Attn(self.ln_1(fx)) + fx
-        fx = self.mlp(self.ln_2(fx)) + fx
+        with span("pmc.transolver.norm"):
+            h = self.ln_1(fx)
+        fx = self.Attn(h) + fx
+        with span("pmc.transolver.norm"):
+            h = self.ln_2(fx)
+        with span("pmc.transolver.mlp"):
+            h = self.mlp(h)
+        fx = h + fx
         if self.last_layer:
-            return self.mlp2(self.ln_3(fx))
+            with span("pmc.transolver.norm"):
+                h = self.ln_3(fx)
+            with span("pmc.transolver.mlp"):
+                return self.mlp2(h)
         return fx
 
 
@@ -310,17 +323,20 @@ class TransolverStructured2D(nn.Module):
         return self._pos[key]
 
     def forward(self, data):
-        x = data[:, :, :self.space_dim]
-        fx = data[:, :, self.space_dim:]
-        if self.unified_pos:
-            x = self.pos_features(data).expand(data.shape[0], -1, -1)
-        fx = self.preprocess(torch.cat((x, fx), dim=-1))
-        for i in range(self.n_layers):
-            fx = getattr(self, f"blocks_{i}")(fx)
-        fx = fx.reshape(-1, self.H, self.W, self.out_dim)
-        p = fx[:, 1:-1, 1:-1, 0] if self.p_pred else None
-        u, v = curl_head_valid(fx[..., 0] * self.a_bound)
-        return u, v, p
+        with span("pmc.transolver.forward"):
+            x = data[:, :, :self.space_dim]
+            fx = data[:, :, self.space_dim:]
+            if self.unified_pos:
+                x = self.pos_features(data).expand(data.shape[0], -1, -1)
+            x = torch.cat((x, fx), dim=-1)
+            with span("pmc.transolver.mlp"):
+                fx = self.preprocess(x)
+            for i in range(self.n_layers):
+                fx = getattr(self, f"blocks_{i}")(fx)
+            fx = fx.reshape(-1, self.H, self.W, self.out_dim)
+            p = fx[:, 1:-1, 1:-1, 0] if self.p_pred else None
+            u, v = curl_head_valid(fx[..., 0] * self.a_bound)
+            return u, v, p
 
 
 class TransolverIrregular(nn.Module):

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from ..physics.advection import GridMetrics, advect_diffuse_step
+from ..utils.profiling import span
 from . import _cuda
 
 _ENTRY = {torch.float32: "pmc_advect_f32", torch.float64: "pmc_advect_f64"}
@@ -57,48 +58,50 @@ def advect_diffuse_step_fused(u, v, T, src, metrics: GridMetrics,
     """u, v, T (B, H, W) or (H, W); src a scalar, a 0-d tensor or a
     (B, H-2, W-2) field; dt a 0-d tensor, or None for the adaptive step.
     Returns (T_new like T, dt a 0-d tensor)."""
-    if T.device.type == "cpu":
-        return advect_diffuse_step_plain(u, v, T, src, metrics, dt=dt,
-                                         cn_max=cn_max, bottom_T=bottom_T,
-                                         top_T=top_T, core_cool=core_cool,
-                                         clip_T=clip_T)
-    squeeze = T.ndim == 2
-    if squeeze:
-        u, v, T = u[None], v[None], T[None]
-    B, H, W = T.shape
-    if T.dtype not in _ENTRY:
-        raise TypeError(f"advect: the kernel takes float32 or float64, got "
-                        f"{T.dtype}")
-    for name, t in (("u", u), ("v", v), ("T", T)):
-        _cuda.check_cuda(f"advect {name}", t, T.dtype, (B, H, W))
-    for t in metrics:
-        _cuda.check_cuda("advect metrics", t, T.dtype, (H - 2, W - 2))
-    src = torch.as_tensor(src, dtype=T.dtype, device=T.device)
-    field = src.ndim > 0
-    if field:
-        src = src.expand(B, H - 2, W - 2).contiguous()
-    if dt is not None:
-        dt = torch.as_tensor(dt, dtype=T.dtype, device=T.device)
-        _cuda.check_cuda("advect dt", dt, T.dtype, ())
-    for t in (u, v, src, *metrics):
-        if t.device != T.device:
-            raise ValueError("advect: inputs on different devices")
-    out = torch.empty_like(T)
-    if dt is None:
-        dt_out = torch.empty((), dtype=T.dtype, device=T.device)
-        part = _cuda.join_scratch(T.device, T.dtype)
-    else:
-        dt_out, part = dt, None
-    err = getattr(_cuda.library(), _ENTRY[T.dtype])(
-        u.data_ptr(), v.data_ptr(), T.data_ptr(), metrics.dx_l.data_ptr(),
-        metrics.dx_r.data_ptr(), metrics.dy_t.data_ptr(),
-        metrics.dy_b.data_ptr(), src.data_ptr(), int(field),
-        _cuda.ptr(dt), dt_out.data_ptr(), _cuda.ptr(part), _cuda.JOIN_BLOCKS,
-        out.data_ptr(), B, H, W, float(cn_max), float(bottom_T),
-        float(top_T), int(core_cool), int(clip_T), _cuda.stream(T))
-    advect_diffuse_step_fused.launches += 1
-    _cuda.raise_on_error(err, "advect_diffuse_step_fused")
-    return (out[0] if squeeze else out), dt_out
+    with span("pmc.kernel.advect"):
+        if T.device.type == "cpu":
+            return advect_diffuse_step_plain(u, v, T, src, metrics, dt=dt,
+                                             cn_max=cn_max, bottom_T=bottom_T,
+                                             top_T=top_T, core_cool=core_cool,
+                                             clip_T=clip_T)
+        squeeze = T.ndim == 2
+        if squeeze:
+            u, v, T = u[None], v[None], T[None]
+        B, H, W = T.shape
+        if T.dtype not in _ENTRY:
+            raise TypeError(f"advect: the kernel takes float32 or float64, "
+                            f"got {T.dtype}")
+        for name, t in (("u", u), ("v", v), ("T", T)):
+            _cuda.check_cuda(f"advect {name}", t, T.dtype, (B, H, W))
+        for t in metrics:
+            _cuda.check_cuda("advect metrics", t, T.dtype, (H - 2, W - 2))
+        src = torch.as_tensor(src, dtype=T.dtype, device=T.device)
+        field = src.ndim > 0
+        if field:
+            src = src.expand(B, H - 2, W - 2).contiguous()
+        if dt is not None:
+            dt = torch.as_tensor(dt, dtype=T.dtype, device=T.device)
+            _cuda.check_cuda("advect dt", dt, T.dtype, ())
+        for t in (u, v, src, *metrics):
+            if t.device != T.device:
+                raise ValueError("advect: inputs on different devices")
+        out = torch.empty_like(T)
+        if dt is None:
+            dt_out = torch.empty((), dtype=T.dtype, device=T.device)
+            part = _cuda.join_scratch(T.device, T.dtype)
+        else:
+            dt_out, part = dt, None
+        err = getattr(_cuda.library(), _ENTRY[T.dtype])(
+            u.data_ptr(), v.data_ptr(), T.data_ptr(), metrics.dx_l.data_ptr(),
+            metrics.dx_r.data_ptr(), metrics.dy_t.data_ptr(),
+            metrics.dy_b.data_ptr(), src.data_ptr(), int(field),
+            _cuda.ptr(dt), dt_out.data_ptr(), _cuda.ptr(part),
+            _cuda.JOIN_BLOCKS, out.data_ptr(), B, H, W, float(cn_max),
+            float(bottom_T), float(top_T), int(core_cool), int(clip_T),
+            _cuda.stream(T))
+        advect_diffuse_step_fused.launches += 1
+        _cuda.raise_on_error(err, "advect_diffuse_step_fused")
+        return (out[0] if squeeze else out), dt_out
 
 
 advect_diffuse_step_fused.launches = 0

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import blc_conv2d, float32_convs, get_activation
+from ..utils.profiling import span
 from . import _cuda
 from .resize import avg_pool_nchw
 
@@ -262,10 +263,11 @@ def layer_stack(x: torch.Tensor, sw: StackWeights, pool: bool = False,
     floor) when ``pyramid`` > 0, else None."""
     if pool and pyramid:
         raise ValueError("layer_stack: pool and pyramid are exclusive")
-    if x.device.type == "cpu":
-        return layer_stack_plain(x, sw, pool, pyramid)
-    ys, pooled, pyr = _launch([x], [sw], pool, pyramid)
-    return ys[0], (pyr if pyramid else pooled)
+    with span("pmc.kernel.layer_stack"):
+        if x.device.type == "cpu":
+            return layer_stack_plain(x, sw, pool, pyramid)
+        ys, pooled, pyr = _launch([x], [sw], pool, pyramid)
+        return ys[0], (pyr if pyramid else pooled)
 
 
 def layer_stacks(xs: Sequence[torch.Tensor],
@@ -273,9 +275,10 @@ def layer_stacks(xs: Sequence[torch.Tensor],
     """Stacks of equal R, c_in, c_o, norm flags and activation on up to
     five fields of any sizes (the pyramid levels' branches) → their
     outputs; on the card layer r of every field runs in one launch."""
-    if xs[0].device.type == "cpu":
-        return layer_stacks_plain(xs, sws)
-    return _launch(list(xs), list(sws))[0]
+    with span("pmc.kernel.layer_stack"):
+        if xs[0].device.type == "cpu":
+            return layer_stacks_plain(xs, sws)
+        return _launch(list(xs), list(sws))[0]
 
 
 layer_stack.launches = 0

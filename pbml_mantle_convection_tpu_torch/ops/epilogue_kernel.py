@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..physics.advection import GridMetrics, advect_diffuse_step
+from ..utils.profiling import span
 from . import _cuda
 from .curl import curl_head_padded
 from .stencils import stamp_temperature_bc
@@ -78,33 +79,34 @@ def curl_advect_epilogue(psi: torch.Tensor, T: torch.Tensor,
                          src: torch.Tensor):
     """ψ, T (H, W); scaler a float; src a 0-d tensor → (u, v, T_new (H, W),
     dt 0-d tensor)."""
-    if psi.device.type == "cpu":
-        return curl_advect_epilogue_plain(psi, T, consts, scaler, src)
-    H, W = psi.shape
-    _cuda.check_cuda_f32("epilogue psi", psi, (H, W))
-    _cuda.check_cuda_f32("epilogue T", T, (H, W))
-    _cuda.check_cuda_f32("epilogue src", src, ())
-    met, dev = consts.metrics, psi.device
-    if met.dx_l.shape != (H - 2, W - 2) or met.dx_l.device != dev:
-        raise ValueError(f"epilogue: constants for metrics of shape "
-                         f"{tuple(met.dx_l.shape)} on {met.dx_l.device}, "
-                         f"fields ({H}, {W}) on {dev}")
-    if T.device != dev or src.device != dev:
-        raise ValueError("epilogue: inputs on different devices")
-    u = torch.empty_like(psi)
-    v = torch.empty_like(psi)
-    T_new = torch.empty_like(psi)
-    dt = torch.empty((), device=dev)
-    err = _cuda.library().pmc_curl_advect_epilogue(
-        psi.data_ptr(), T.data_ptr(), met.dx_l.data_ptr(),
-        met.dx_r.data_ptr(), met.dy_t.data_ptr(), met.dy_b.data_ptr(),
-        src.data_ptr(), u.data_ptr(), v.data_ptr(), T_new.data_ptr(),
-        dt.data_ptr(), _cuda.join_scratch(dev, torch.float32).data_ptr(),
-        _cuda.JOIN_BLOCKS, H, W, consts.a_bound, float(scaler),
-        consts.adv_num, consts.dt_diffuse, _cuda.stream(psi))
-    curl_advect_epilogue.launches += 1
-    _cuda.raise_on_error(err, "curl_advect_epilogue")
-    return u, v, T_new, dt
+    with span("pmc.kernel.epilogue"):
+        if psi.device.type == "cpu":
+            return curl_advect_epilogue_plain(psi, T, consts, scaler, src)
+        H, W = psi.shape
+        _cuda.check_cuda_f32("epilogue psi", psi, (H, W))
+        _cuda.check_cuda_f32("epilogue T", T, (H, W))
+        _cuda.check_cuda_f32("epilogue src", src, ())
+        met, dev = consts.metrics, psi.device
+        if met.dx_l.shape != (H - 2, W - 2) or met.dx_l.device != dev:
+            raise ValueError(f"epilogue: constants for metrics of shape "
+                             f"{tuple(met.dx_l.shape)} on {met.dx_l.device}, "
+                             f"fields ({H}, {W}) on {dev}")
+        if T.device != dev or src.device != dev:
+            raise ValueError("epilogue: inputs on different devices")
+        u = torch.empty_like(psi)
+        v = torch.empty_like(psi)
+        T_new = torch.empty_like(psi)
+        dt = torch.empty((), device=dev)
+        err = _cuda.library().pmc_curl_advect_epilogue(
+            psi.data_ptr(), T.data_ptr(), met.dx_l.data_ptr(),
+            met.dx_r.data_ptr(), met.dy_t.data_ptr(), met.dy_b.data_ptr(),
+            src.data_ptr(), u.data_ptr(), v.data_ptr(), T_new.data_ptr(),
+            dt.data_ptr(), _cuda.join_scratch(dev, torch.float32).data_ptr(),
+            _cuda.JOIN_BLOCKS, H, W, consts.a_bound, float(scaler),
+            consts.adv_num, consts.dt_diffuse, _cuda.stream(psi))
+        curl_advect_epilogue.launches += 1
+        _cuda.raise_on_error(err, "curl_advect_epilogue")
+        return u, v, T_new, dt
 
 
 curl_advect_epilogue.launches = 0

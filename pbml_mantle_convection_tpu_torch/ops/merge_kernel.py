@@ -28,6 +28,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import _cuda
 from .branch_kernel import StackWeights, act_code, layer_stack_plain
 from .resize import _resize_matrix_np, resize_bicubic_nchw
@@ -104,45 +105,47 @@ def trunk(b0: torch.Tensor, coarse: Sequence[torch.Tensor], x: torch.Tensor,
           tw: TrunkWeights) -> torch.Tensor:
     """b0 (c_h, H, W), coarse branches (c_h, h_l, w_l), input x
     (c_x, H, W) → merge-1 output (c_h, H, W)."""
-    if b0.device.type == "cpu":
-        return trunk_plain(b0, coarse, x, tw)
-    c_h, H, W = tw.merge.c_o, tw.H, tw.W
-    if len(coarse) != len(tw.coarse_hw):
-        raise ValueError(f"trunk: expected {len(tw.coarse_hw)} coarse "
-                         f"branches, got {len(coarse)}")
-    _cuda.check_cuda_f32("trunk b0", b0, (c_h, H, W))
-    for c, (h, w) in zip(coarse, tw.coarse_hw):
-        _cuda.check_cuda_f32("trunk coarse branch", c, (c_h, h, w))
-    c_x = tw.merge.c_in - c_h * (len(coarse) + 1)
-    _cuda.check_cuda_f32("trunk x", x, (c_x, H, W))
-    m, n = tw.merge, len(coarse)
-    if c_h % 8 or not (m.use_gn and m.use_act) or n > _cuda.MAX_LEVELS:
-        raise ValueError("trunk: the kernel takes c_h a multiple of 8, "
-                         "GroupNorm followed by an activation, "
-                         f"≤ {_cuda.MAX_LEVELS} coarse branches")
-    for t in (m.frag, m.bias, m.gn_scale, m.gn_bias, tw.y_w, tw.x_w):
-        _cuda.check_cuda_f32("trunk weights", t)
-        if t.device != b0.device:
-            raise ValueError("trunk: weights and fields on different devices")
-    lib = _cuda.library()
-    ptrs = (ctypes.c_void_p * max(n, 1))(*[c.data_ptr() for c in coarse])
-    hws = (ctypes.c_int * max(2 * n, 1))(*[v for hw in tw.coarse_hw
-                                            for v in hw])
-    y = torch.empty((c_h, H, W), device=b0.device)
-    stats = torch.empty((m.groups * 2,), device=b0.device)
-    partial = torch.empty((_cuda.work_items(H, W, m.zero_pad) * c_h * 2,),
-                          dtype=torch.float64, device=b0.device)
-    err = lib.pmc_trunk(
-        b0.data_ptr(), ptrs, hws, n, x.data_ptr(), c_x, y.data_ptr(),
-        stats.data_ptr(), partial.data_ptr(),
-        _cuda.counters(b0.device).data_ptr(), tw.y_idx.data_ptr(),
-        tw.y_w.data_ptr(), tw.x_idx.data_ptr(), tw.x_w.data_ptr(),
-        m.frag.data_ptr(), m.bias.data_ptr(), m.gn_scale.data_ptr(),
-        m.gn_bias.data_ptr(), c_h, H, W, m.groups, act_code(m.act),
-        int(m.zero_pad), _cuda.stream(b0))
-    trunk.launches += 1
-    _cuda.raise_on_error(err, "trunk")
-    return y
+    with span("pmc.kernel.trunk"):
+        if b0.device.type == "cpu":
+            return trunk_plain(b0, coarse, x, tw)
+        c_h, H, W = tw.merge.c_o, tw.H, tw.W
+        if len(coarse) != len(tw.coarse_hw):
+            raise ValueError(f"trunk: expected {len(tw.coarse_hw)} coarse "
+                             f"branches, got {len(coarse)}")
+        _cuda.check_cuda_f32("trunk b0", b0, (c_h, H, W))
+        for c, (h, w) in zip(coarse, tw.coarse_hw):
+            _cuda.check_cuda_f32("trunk coarse branch", c, (c_h, h, w))
+        c_x = tw.merge.c_in - c_h * (len(coarse) + 1)
+        _cuda.check_cuda_f32("trunk x", x, (c_x, H, W))
+        m, n = tw.merge, len(coarse)
+        if c_h % 8 or not (m.use_gn and m.use_act) or n > _cuda.MAX_LEVELS:
+            raise ValueError("trunk: the kernel takes c_h a multiple of 8, "
+                             "GroupNorm followed by an activation, "
+                             f"≤ {_cuda.MAX_LEVELS} coarse branches")
+        for t in (m.frag, m.bias, m.gn_scale, m.gn_bias, tw.y_w, tw.x_w):
+            _cuda.check_cuda_f32("trunk weights", t)
+            if t.device != b0.device:
+                raise ValueError("trunk: weights and fields on different "
+                                 "devices")
+        lib = _cuda.library()
+        ptrs = (ctypes.c_void_p * max(n, 1))(*[c.data_ptr() for c in coarse])
+        hws = (ctypes.c_int * max(2 * n, 1))(*[v for hw in tw.coarse_hw
+                                                for v in hw])
+        y = torch.empty((c_h, H, W), device=b0.device)
+        stats = torch.empty((m.groups * 2,), device=b0.device)
+        partial = torch.empty((_cuda.work_items(H, W, m.zero_pad) * c_h * 2,),
+                              dtype=torch.float64, device=b0.device)
+        err = lib.pmc_trunk(
+            b0.data_ptr(), ptrs, hws, n, x.data_ptr(), c_x, y.data_ptr(),
+            stats.data_ptr(), partial.data_ptr(),
+            _cuda.counters(b0.device).data_ptr(), tw.y_idx.data_ptr(),
+            tw.y_w.data_ptr(), tw.x_idx.data_ptr(), tw.x_w.data_ptr(),
+            m.frag.data_ptr(), m.bias.data_ptr(), m.gn_scale.data_ptr(),
+            m.gn_bias.data_ptr(), c_h, H, W, m.groups, act_code(m.act),
+            int(m.zero_pad), _cuda.stream(b0))
+        trunk.launches += 1
+        _cuda.raise_on_error(err, "trunk")
+        return y
 
 
 trunk.launches = 0

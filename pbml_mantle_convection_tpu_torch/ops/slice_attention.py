@@ -51,6 +51,7 @@ import threading
 
 import torch
 
+from ..utils.profiling import span
 from . import _cuda
 
 _ENTRY = {torch.float32: "f32", torch.float64: "f64",
@@ -190,31 +191,32 @@ def slice_pool(fx, xm, ws, bs, temp):
     den (…, G): the softmax-weighted sums of fx and of the weights.
     Raises under autograd (an input requires grad), on any device."""
     _no_graph("slice_pool", fx, xm, ws, bs, temp)
-    if xm.device.type == "cpu":
-        return slice_pool_plain(fx, xm, ws, bs, temp)
-    B, H, N, D, G, xs = _check("slice_pool", xm, ws, bs, temp)
-    if fx.dtype != xm.dtype or fx.shape != xm.shape \
-            or fx.device != xm.device or fx.stride(-1) != 1:
-        raise ValueError(f"slice_pool: fx must match x_mid's shape, type "
-                         f"and device with a channel stride of 1, got "
-                         f"{tuple(fx.shape)} {fx.dtype}, strides "
-                         f"{fx.stride()}")
-    entry = _ENTRY[xm.dtype]
-    chunks, per_chunk = _plan("pool", entry, xm.device, B * H, N, D, G)
-    wide = torch.float64 if xm.dtype == torch.float64 else torch.float32
-    part = torch.empty(B * H * chunks * G * (D + 1), dtype=wide,
-                       device=xm.device)
-    lead = xm.shape[:-2]
-    num = torch.empty(*lead, G, D, dtype=xm.dtype, device=xm.device)
-    den = torch.empty(*lead, G, dtype=xm.dtype, device=xm.device)
-    err = getattr(_cuda.library(), f"pmc_slice_pool_{entry}")(
-        fx.data_ptr(), xm.data_ptr(), ws.data_ptr(), bs.data_ptr(),
-        temp.data_ptr(), part.data_ptr(), num.data_ptr(), den.data_ptr(),
-        B * H, H, N, D, G, *_rows(fx)[1], *xs, *ws.stride(), chunks,
-        per_chunk, _cuda.stream(xm))
-    slice_pool.launches += 1
-    _cuda.raise_on_error(err, "slice_pool")
-    return num, den
+    with span("pmc.kernel.slice_pool"):
+        if xm.device.type == "cpu":
+            return slice_pool_plain(fx, xm, ws, bs, temp)
+        B, H, N, D, G, xs = _check("slice_pool", xm, ws, bs, temp)
+        if fx.dtype != xm.dtype or fx.shape != xm.shape \
+                or fx.device != xm.device or fx.stride(-1) != 1:
+            raise ValueError(f"slice_pool: fx must match x_mid's shape, type "
+                             f"and device with a channel stride of 1, got "
+                             f"{tuple(fx.shape)} {fx.dtype}, strides "
+                             f"{fx.stride()}")
+        entry = _ENTRY[xm.dtype]
+        chunks, per_chunk = _plan("pool", entry, xm.device, B * H, N, D, G)
+        wide = torch.float64 if xm.dtype == torch.float64 else torch.float32
+        part = torch.empty(B * H * chunks * G * (D + 1), dtype=wide,
+                           device=xm.device)
+        lead = xm.shape[:-2]
+        num = torch.empty(*lead, G, D, dtype=xm.dtype, device=xm.device)
+        den = torch.empty(*lead, G, dtype=xm.dtype, device=xm.device)
+        err = getattr(_cuda.library(), f"pmc_slice_pool_{entry}")(
+            fx.data_ptr(), xm.data_ptr(), ws.data_ptr(), bs.data_ptr(),
+            temp.data_ptr(), part.data_ptr(), num.data_ptr(), den.data_ptr(),
+            B * H, H, N, D, G, *_rows(fx)[1], *xs, *ws.stride(), chunks,
+            per_chunk, _cuda.stream(xm))
+        slice_pool.launches += 1
+        _cuda.raise_on_error(err, "slice_pool")
+        return num, den
 
 
 def _deslice_out(xm):
@@ -236,22 +238,23 @@ def slice_deslice(xm, tok, ws, bs, temp):
     ``out.transpose(1, 2).reshape(B, N, -1)`` is a view. Raises under
     autograd (an input requires grad), on any device."""
     _no_graph("slice_deslice", xm, tok, ws, bs, temp)
-    if xm.device.type == "cpu":
-        out = slice_deslice_plain(xm, tok, ws, bs, temp)
-        return out if xm.dim() == 3 else _deslice_out(xm).copy_(out)
-    B, H, N, D, G, xs = _check("slice_deslice", xm, ws, bs, temp)
-    _cuda.check_cuda("slice_deslice tok", tok, xm.dtype,
-                     (*xm.shape[:-2], G, D))
-    out = _deslice_out(xm)
-    entry = _ENTRY[xm.dtype]
-    chunks, per_chunk = _plan("deslice", entry, xm.device, B * H, N, D, G)
-    err = getattr(_cuda.library(), f"pmc_slice_deslice_{entry}")(
-        xm.data_ptr(), tok.data_ptr(), ws.data_ptr(), bs.data_ptr(),
-        temp.data_ptr(), out.data_ptr(), B * H, H, N, D, G, *xs,
-        *_rows(out)[1], *ws.stride(), chunks, per_chunk, _cuda.stream(xm))
-    slice_deslice.launches += 1
-    _cuda.raise_on_error(err, "slice_deslice")
-    return out
+    with span("pmc.kernel.slice_deslice"):
+        if xm.device.type == "cpu":
+            out = slice_deslice_plain(xm, tok, ws, bs, temp)
+            return out if xm.dim() == 3 else _deslice_out(xm).copy_(out)
+        B, H, N, D, G, xs = _check("slice_deslice", xm, ws, bs, temp)
+        _cuda.check_cuda("slice_deslice tok", tok, xm.dtype,
+                         (*xm.shape[:-2], G, D))
+        out = _deslice_out(xm)
+        entry = _ENTRY[xm.dtype]
+        chunks, per_chunk = _plan("deslice", entry, xm.device, B * H, N, D, G)
+        err = getattr(_cuda.library(), f"pmc_slice_deslice_{entry}")(
+            xm.data_ptr(), tok.data_ptr(), ws.data_ptr(), bs.data_ptr(),
+            temp.data_ptr(), out.data_ptr(), B * H, H, N, D, G, *xs,
+            *_rows(out)[1], *ws.stride(), chunks, per_chunk, _cuda.stream(xm))
+        slice_deslice.launches += 1
+        _cuda.raise_on_error(err, "slice_deslice")
+        return out
 
 
 slice_pool.launches = 0

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.stencils import replicate_pad
+from ..utils.profiling import span
 
 
 class StokesResult(NamedTuple):
@@ -169,8 +170,9 @@ class PTStokesSolver:
             n_done = torch.zeros(lead, dtype=torch.int64, device=T_c.device)
             n_all = err.numel()
             while True:
-                active = (err > self.ptol) & (n_done < n_max)
-                n_active = int(active.sum())              # host read
+                with span("pmc.pt.check"):
+                    active = (err > self.ptol) & (n_done < n_max)
+                    n_active = int(active.sum())          # host read
                 if n_active == 0:
                     break
                 if n_active == n_all:
@@ -180,9 +182,10 @@ class PTStokesSolver:
                     keep = active.reshape(lead + (1, 1))
                     state = tuple(torch.where(keep, a, b)
                                   for a, b in zip(new, state))
-                em, ed = err_pair(*state[:3])
-                err = torch.where(active, torch.maximum(em, ed), err)
-                n_done = n_done + chunk * active
+                with span("pmc.pt.check"):
+                    em, ed = err_pair(*state[:3])
+                    err = torch.where(active, torch.maximum(em, ed), err)
+                    n_done = n_done + chunk * active
         else:
             state = iterate(n_max, *state)
             n_done = torch.full(lead, n_max, dtype=torch.int64,
@@ -220,17 +223,18 @@ class StokesFn:
         self.n_done: Optional[torch.Tensor] = None
 
     def __call__(self, T, V, uvp0=None):
-        T_c, V_c = T[..., 1:-1, 1:-1], V[..., 1:-1, 1:-1]
-        if uvp0 is None:
-            r = self.solver.solve(T_c, V_c)
-        else:
-            u0, v0, p0 = uvp0
-            r = self.solver.solve(T_c, V_c, u0=u0[..., 1:-1, 1:-1],
-                                  v0=v0[..., 1:-1, 1:-1],
-                                  p0=p0[..., 1:-1, 1:-1],
-                                  n_iter=self.pre_iter)
-        self.n_done = r.n_done
-        return r.u, r.v, r.p
+        with span("pmc.pt.solve"):
+            T_c, V_c = T[..., 1:-1, 1:-1], V[..., 1:-1, 1:-1]
+            if uvp0 is None:
+                r = self.solver.solve(T_c, V_c)
+            else:
+                u0, v0, p0 = uvp0
+                r = self.solver.solve(T_c, V_c, u0=u0[..., 1:-1, 1:-1],
+                                      v0=v0[..., 1:-1, 1:-1],
+                                      p0=p0[..., 1:-1, 1:-1],
+                                      n_iter=self.pre_iter)
+            self.n_done = r.n_done
+            return r.u, r.v, r.p
 
 
 def make_stokes_fn(grid, raq: float, n_iter: int = 2000,

@@ -71,6 +71,7 @@ from ..ops.epilogue_kernel import curl_advect_epilogue, epilogue_consts
 from ..ops.stencils import stamp_temperature_bc
 from ..physics.advection import stability_dt, viscous_dissipation
 from ..physics.viscosity import fk_viscosity
+from ..utils.profiling import span
 from .stepper import TimeStepper, plain_curl_head
 
 MODES = ("ML", "ML_STOKES", "ML_PRE", "GAIA")
@@ -254,7 +255,8 @@ class SimEngine:
     @torch.no_grad()
     def step(self, state: SimState) -> SimState:
         """One coupled step."""
-        return self._step(state, int(state.n_step) if self._skip else 0)
+        with span("pmc.engine.step"):
+            return self._step(state, int(state.n_step) if self._skip else 0)
 
     def step_unet(self, state: SimState) -> SimState:
         """One coupled U-Net step: the network advances (u, v, T)
@@ -283,12 +285,13 @@ class SimEngine:
             sp = self.stepper.stokes_psi(T)
             if sp is not None:
                 psi, V, s = sp
-                u, v, T_new, dt = curl_advect_epilogue(
-                    psi[0], T[0], self._epi, s, self._source(state))
-                return SimState(
-                    T=T_new[None], u=u[None], v=v[None], p=state.p, V=V,
-                    t=state.t + dt, dt=dt, n_step=state.n_step + 1,
-                    T_core=state.T_core)
+                with span("pmc.engine.energy"):
+                    u, v, T_new, dt = curl_advect_epilogue(
+                        psi[0], T[0], self._epi, s, self._source(state))
+                    return SimState(
+                        T=T_new[None], u=u[None], v=v[None], p=state.p, V=V,
+                        t=state.t + dt, dt=dt, n_step=state.n_step + 1,
+                        T_core=state.T_core)
 
         if self.mode == "GAIA":
             V = fk_viscosity(self.params.fkt, self.params.fkp, self._depth, T)
@@ -306,38 +309,46 @@ class SimEngine:
             if p is None:
                 p = state.p
 
-        src = self._energy_sources(state, T, u, v, V)
-        T_new, dt = self._energy_step(u, v, T, src, self._shared_dt(u, v))
+        with span("pmc.engine.energy"):
+            src = self._energy_sources(state, T, u, v, V)
+            T_new, dt = self._energy_step(u, v, T, src,
+                                          self._shared_dt(u, v))
 
-        T_core = state.T_core
-        if self.core_cool:
-            # the CMB temperature falls with the mean upward conductive
-            # flux between the CMB (row 0) and the first cell centre, dy/2
-            # above it, scaled by Core/rhoCpVar (prepare_gaia_ini.py:70-71)
-            q_cmb = self._group_mean(torch.mean(
-                (state.T_core - T_new[..., 1, :]) / (0.5 * self.grid.dy)))
-            T_core = T_core - dt * CORE_RHOCP_VAR * q_cmb
-            T_new[..., 0, :] = T_core
+            T_core = state.T_core
+            if self.core_cool:
+                # the CMB temperature falls with the mean upward conductive
+                # flux between the CMB (row 0) and the first cell centre,
+                # dy/2 above it, scaled by Core/rhoCpVar
+                # (prepare_gaia_ini.py:70-71)
+                q_cmb = self._group_mean(torch.mean(
+                    (state.T_core - T_new[..., 1, :]) / (0.5 * self.grid.dy)))
+                T_core = T_core - dt * CORE_RHOCP_VAR * q_cmb
+                T_new[..., 0, :] = T_core
 
-        T_new = stamp_temperature_bc(T_new, core_cool=self.core_cool)
-        T_new = torch.clamp(T_new, 0.0, 2.0)
-        return SimState(T=T_new, u=u, v=v, p=p, V=V, t=state.t + dt, dt=dt,
-                        n_step=state.n_step + 1, T_core=T_core)
+            T_new = stamp_temperature_bc(T_new, core_cool=self.core_cool)
+            T_new = torch.clamp(T_new, 0.0, 2.0)
+            return SimState(T=T_new, u=u, v=v, p=p, V=V, t=state.t + dt,
+                            dt=dt, n_step=state.n_step + 1, T_core=T_core)
 
     @torch.no_grad()
     def multi_step(self, state: SimState, n_steps: int):
         """n_steps coupled steps queued without a host round trip (the PT
         solve's residual checks aside); returns the final state and the
-        per-step scalar trace (stacked device tensors)."""
+        per-step scalar trace (stacked device tensors: the three records
+        of every step in one stack)."""
         n0 = int(state.n_step) if self._skip else 0
         mean_T, ts, dts = [], [], []
         for k in range(n_steps):
-            state = self._step(state, n0 + k)
-            mean_T.append(state.T.mean())
-            ts.append(state.t)
-            dts.append(state.dt)
-        return state, RolloutTrace(self._group_mean(torch.stack(mean_T)),
-                                   torch.stack(ts), torch.stack(dts))
+            with span("pmc.engine.step"):
+                state = self._step(state, n0 + k)
+                with span("pmc.engine.record"):
+                    mean_T.append(state.T.mean())
+                    ts.append(state.t)
+                    dts.append(state.dt)
+        with span("pmc.engine.record"):
+            rec = torch.stack(mean_T + ts + dts).view(3, n_steps)
+            return state, RolloutTrace(self._group_mean(rec[0]), rec[1],
+                                       rec[2])
 
     def rollout(self, state: SimState, n_steps: int,
                 snapshot_every: Optional[int] = None):
@@ -351,8 +362,12 @@ class SimEngine:
             k = min(snapshot_every, n_steps - done)
             state, tr = self.multi_step(state, k)
             traces.append(tr)
-            snapshots.append({name: getattr(state, name).cpu().numpy()
-                              for name in ("T", "u", "v", "p", "V", "t")})
+            with span("pmc.engine.snapshot"):
+                snapshots.append({name: getattr(state, name).cpu().numpy()
+                                  for name in ("T", "u", "v", "p", "V", "t")})
             done += k
-        trace = RolloutTrace(*(torch.cat(x) for x in zip(*traces)))
+        if len(traces) == 1:
+            return state, traces[0], snapshots
+        with span("pmc.engine.record"):
+            trace = RolloutTrace(*(torch.cat(x) for x in zip(*traces)))
         return state, trace, snapshots

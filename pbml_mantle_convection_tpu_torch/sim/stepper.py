@@ -27,6 +27,7 @@ from ..ops.advect_kernel import advect_diffuse_step_fused
 from ..ops.stencils import stamp_temperature_bc
 from ..physics.advection import grid_metrics
 from ..physics.viscosity import fk_viscosity, fk_viscosity_clipped
+from ..utils.profiling import span
 from .grid import Grid
 
 
@@ -213,7 +214,8 @@ class TimeStepper:
                              "surrogate (apply_fn=None)")
         fn = self._bound_fast()
         if fn is not None:
-            V = viscosity(T, self._static, self.params)
+            with span("pmc.engine.input"):
+                V = viscosity(T, self._static, self.params)
             if T.shape[0] == 1:
                 u, v, p = fn.apply_from_T(T, V)
             else:
@@ -238,7 +240,8 @@ class TimeStepper:
         fn = self._bound_fast()
         if (fn is None or T.shape[0] != 1 or not plain_curl_head(fn.m)):
             return None
-        V = viscosity(T, self._static, self.params)
+        with span("pmc.engine.input"):
+            V = viscosity(T, self._static, self.params)
         return fn.apply_psi_from_T(T, V), V, self.scaler
 
     @torch.no_grad()

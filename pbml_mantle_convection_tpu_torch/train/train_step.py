@@ -43,6 +43,7 @@ from ..models.fluidnet import HALF_HEAD
 from ..models.layers import float32_convs
 from ..ops.curl import curl_head_valid
 from ..ops.slice_attention import plain_slice_attention
+from ..utils.profiling import span
 from .losses import LossBreakdown, fluidnet_loss, unet_loss
 
 
@@ -253,17 +254,21 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     def step(batch) -> LossBreakdown:
         with float32_convs(batch["x"]):
             optimizer.zero_grad(set_to_none=False)
-            br = loss_fn(batch)
-            br.total.backward()
-            # a parameter the loss does not reach gets a zero gradient,
-            # which optax's Adam updates (its moments, the L2 term) and
-            # torch's skips when the gradient is None
-            for q in params:
-                if q.grad is None:
-                    q.grad = torch.zeros_like(q)
-            if process_group is not None:
-                _all_reduce_mean([q.grad for q in params], process_group)
-            optimizer.step()
+            with span("pmc.train.loss"):
+                br = loss_fn(batch)
+            with span("pmc.train.backward"):
+                br.total.backward()
+                # a parameter the loss does not reach gets a zero
+                # gradient, which optax's Adam updates (its moments, the
+                # L2 term) and torch's skips when the gradient is None
+                for q in params:
+                    if q.grad is None:
+                        q.grad = torch.zeros_like(q)
+                if process_group is not None:
+                    _all_reduce_mean([q.grad for q in params],
+                                     process_group)
+            with span("pmc.train.optimizer"):
+                optimizer.step()
         return _mean_breakdown(br, process_group)
 
     return step

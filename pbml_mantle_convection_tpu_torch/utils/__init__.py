@@ -4,4 +4,4 @@ from .checkpoint import (  # noqa: F401
 from .evaluation import (  # noqa: F401
     compare_rollouts, field_mae, inference_latency, model_error_sweep,
     pearson, speedup_table, temperature_rmse)
-from .profiling import StepTimer, trace  # noqa: F401
+from .profiling import trace  # noqa: F401

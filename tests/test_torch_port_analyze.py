@@ -8,8 +8,7 @@ reference-checkpoint bridge against the JAX package's, on the CPU.
 * ``cli/analyze.py``: the rows and the ``--json`` file equal to JAX's on
   the fake runs of tests/test_cli.py; ``--figures`` where matplotlib is
   installed;
-* ``utils/profiling.py``: ``StepTimer`` and ``trace`` (a Chrome trace
-  file);
+* ``utils/profiling.py``: ``trace`` (a Chrome trace file);
 * ``utils/torch_convert.py``: reference-named state_dicts built here from
   the name map (seeded values) for NewFluidNet (learned, zero and
   replicate padding), the U-Net and TransolverStructured2D: equal to
@@ -53,8 +52,7 @@ from pbml_mantle_convection_tpu_torch.utils import evaluation as tev  # noqa: E4
 from pbml_mantle_convection_tpu_torch.utils import torch_convert as tconv  # noqa: E402
 from pbml_mantle_convection_tpu_torch.utils.flax_convert import (  # noqa: E402
     from_jax_params)
-from pbml_mantle_convection_tpu_torch.utils.profiling import (  # noqa: E402
-    StepTimer, trace)
+from pbml_mantle_convection_tpu_torch.utils.profiling import trace  # noqa: E402
 
 F64 = torch.float64
 
@@ -143,17 +141,6 @@ def test_inference_latency_times_the_forward():
 
 
 # --------------------------------------------------------------- profiling
-
-def test_step_timer():
-    timer = StepTimer(device="cpu")
-    assert timer.steps_per_s == 0.0
-    for _ in range(3):
-        with timer:
-            sum(range(1000))
-    assert len(timer.times) == 3 and all(t > 0 for t in timer.times)
-    assert timer.mean == pytest.approx(sum(timer.times) / 3)
-    assert timer.steps_per_s == pytest.approx(1.0 / timer.mean)
-
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with trace(None):

@@ -204,8 +204,10 @@ def test_resize_bicubic_arguments_match_jax(a, align_corners):
 
 
 # the JAX package's __init__.py re-exports, by package; utils' XLA
-# compiler options (utils/jit.py) have no counterpart
-JAX_ONLY = {"utils": {"TPU_COMPILER_OPTIONS", "tpu_jit"}}
+# compiler options (utils/jit.py) have no counterpart, and the port has
+# no StepTimer: it synchronised the card at every step, which no rate may
+# do, and nothing read it (utils/profiling.py::span marks the layers)
+JAX_ONLY = {"utils": {"TPU_COMPILER_OPTIONS", "tpu_jit", "StepTimer"}}
 PACKAGES = ("", "models", "train", "data", "utils", "ops", "physics", "sim",
             "parallel")
 
