@@ -1452,7 +1452,9 @@ def run_transolver(counters, iters=50, H=128, W=506, device="cuda"):
 
 def device_kernels(fn, calls: int = 1):
     """The device kernels of ``calls`` calls of ``fn`` (after a warm-up
-    call), by name: ``torch.profiler``'s CUDA events."""
+    call), by name: ``torch.profiler``'s CUDA events, less the program's
+    ``pmc.*`` spans (``utils/profiling.py::span``), which the profiler
+    also puts on the device's timeline, as ranges that launch nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1464,7 +1466,8 @@ def device_kernels(fn, calls: int = 1):
         torch.cuda.synchronize()
     return collections.Counter(
         e.name for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA)
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not e.name.startswith("pmc."))
 
 
 def device_kernel_count(fn, calls: int = 5, sessions: int = 3) -> float:

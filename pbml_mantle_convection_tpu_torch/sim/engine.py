@@ -55,10 +55,25 @@ nothing changes.
 A bfloat16 state (the JAX CLI's ``--dtype bfloat16``) takes its energy
 step in float32, the kernel's narrowest type, from the same bfloat16
 values, and the new T and dt are rounded back to bfloat16.
+
+On the card the fused step is short enough that the host's enqueue of
+its ~30 launches, not the device, sets the rate. So where a chunk of
+:meth:`SimEngine.multi_step` takes the fused epilogue on one float32
+simulation on the card, with no process group and no profiler
+collecting, the engine captures the chunk (its steps and records) as a
+CUDA graph the second time it meets that chunk length, and replays it
+from then on: the same kernels in the same order on copies of the
+state, so the results are those of the eager loop to the bit. Every
+other chunk (GAIA, ML_PRE, B > 1, a process group, the CPU, bfloat16,
+the module heads) runs the eager loop. Under a profiler the chunk runs
+eagerly too, so that the program's spans, and any span a caller opens
+around a call into the executor or a kernel wrapper, see the calls they
+wrap; the eager chunk runs the same kernels in the same order.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -67,11 +82,13 @@ import torch.distributed as dist
 
 from ..constants import COORD_SCALE
 from ..ops.advect_kernel import advect_diffuse_step_fused
+from ..ops.branch_kernel import layer_stack
 from ..ops.epilogue_kernel import curl_advect_epilogue, epilogue_consts
+from ..ops.merge_kernel import trunk
 from ..ops.stencils import stamp_temperature_bc
 from ..physics.advection import stability_dt, viscous_dissipation
 from ..physics.viscosity import fk_viscosity
-from ..utils.profiling import span
+from ..utils.profiling import profiling, span
 from .stepper import TimeStepper, plain_curl_head
 
 MODES = ("ML", "ML_STOKES", "ML_PRE", "GAIA")
@@ -81,6 +98,16 @@ DECAY_LAMBDAS = (14.200767386369366, 90.1668042856123,
 DECAY_COEFFS = (0.130448695228009, 0.2345333106414419,
                 0.07981198571490902, 0.55520600841564)
 CORE_RHOCP_VAR = 0.7058823529411765  # Core/rhoCpVar (prepare_gaia_ini.py:91)
+# chunk lengths whose graphs an engine keeps: a rollout's snapshot
+# interval, a probe's, a remainder
+GRAPH_KEYS = 4
+# the kernel wrappers whose ``.launches`` count their calls; a replay adds
+# the calls its capture made
+COUNTED = (layer_stack, trunk, curl_advect_epilogue,
+           advect_diffuse_step_fused)
+# the fields of a state that a fused step reads or passes on: a replay
+# copies them into the graph's inputs (u, v, V and dt are made anew)
+GRAPH_INPUTS = ("T", "p", "t", "n_step", "T_core")
 
 
 class SimState(NamedTuple):
@@ -105,14 +132,47 @@ class RolloutTrace(NamedTuple):
     dt: torch.Tensor
 
 
+class _Chunk(NamedTuple):
+    """A chunk length met by :meth:`SimEngine.multi_step` on the card.
+    ``pinned`` holds the executor and its bound input, which the graph
+    reads and the chunk's key names by identity. Once met, ``graph`` is
+    None; once captured: the graph; ``inputs``, per dtype, its input
+    tensors and the fields of ``GRAPH_INPUTS`` copied into them;
+    ``outputs``, its output tensors (the state's fields, then the
+    records); ``groups``, the indices of the outputs of each dtype;
+    ``launches``, each ``COUNTED`` wrapper's calls in one replay."""
+
+    pinned: tuple
+    graph: Optional["torch.cuda.CUDAGraph"] = None
+    inputs: tuple = ()
+    outputs: tuple = ()
+    groups: tuple = ()
+    launches: tuple = ()
+
+
+def _by_dtype(ts) -> list:
+    """The indices of ``ts`` grouped by dtype."""
+    groups = {}
+    for i, t in enumerate(ts):
+        groups.setdefault(t.dtype, []).append(i)
+    return list(groups.values())
+
+
+@functools.lru_cache(maxsize=None)
+def _decay_consts(dtype: torch.dtype, device: torch.device):
+    """(λ, c) of the decay as tensors, made once per dtype and device (a
+    step copies nothing from the host, so a CUDA graph can hold it)."""
+    return (torch.tensor(DECAY_LAMBDAS, dtype=dtype, device=device),
+            torch.tensor(DECAY_COEFFS, dtype=dtype, device=device))
+
+
 def decay_heating(raq: float, t: torch.Tensor, radioactive_decay: bool):
     """Internal heating at time t: RaQ·Σ c_i exp(-λ_i t) with decay on,
     else RaQ (GAIA RadioactiveDecay module, prepare_gaia_ini.py:81-92).
     A 0-d tensor on t's device."""
     if not radioactive_decay:
         return torch.full((), raq, dtype=t.dtype, device=t.device)
-    lam = torch.tensor(DECAY_LAMBDAS, dtype=t.dtype, device=t.device)
-    cf = torch.tensor(DECAY_COEFFS, dtype=t.dtype, device=t.device)
+    lam, cf = _decay_consts(t.dtype, t.device)
     return raq * torch.sum(cf * torch.exp(-lam * t))
 
 
@@ -120,7 +180,13 @@ class SimEngine:
     """The coupled rollout (module docstring); runs where its stepper
     runs. ``stokes_fn`` (e.g. ``physics/stokes.py::make_stokes_fn``) is
     required by the GAIA and ML_PRE modes; the other modes use the
-    stepper's surrogate."""
+    stepper's surrogate.
+
+    ``graph_steps`` and ``eager_steps`` count the steps that every engine
+    of the process ran by replaying a captured chunk and eagerly."""
+
+    graph_steps = 0
+    eager_steps = 0
 
     def __init__(self, stepper: TimeStepper, mode: str = "ML_STOKES",
                  intervene_ts: int = 1, radioactive_decay: bool = False,
@@ -169,6 +235,7 @@ class SimEngine:
                 and plain_curl_head(fn.m)):
             self._epi = epilogue_consts(stepper._metrics, fn.m.a_bound,
                                         stepper.cn_max)
+        self._graphs = {}   # chunk key -> _Chunk, the newest last
 
     def init_state(self, T0, T_core: float = 1.0) -> SimState:
         T0 = torch.as_tensor(T0, dtype=self.dtype, device=self.device)
@@ -255,6 +322,7 @@ class SimEngine:
     @torch.no_grad()
     def step(self, state: SimState) -> SimState:
         """One coupled step."""
+        SimEngine.eager_steps += 1
         with span("pmc.engine.step"):
             return self._step(state, int(state.n_step) if self._skip else 0)
 
@@ -335,7 +403,101 @@ class SimEngine:
         """n_steps coupled steps queued without a host round trip (the PT
         solve's residual checks aside); returns the final state and the
         per-step scalar trace (stacked device tensors: the three records
-        of every step in one stack)."""
+        of every step in one stack).
+
+        Where :meth:`_eager_reason` finds none, the chunk replays a CUDA
+        graph (module docstring): the first chunk of a length runs
+        eagerly, the second is the warm-up of its capture and the later
+        ones replay it. The returned tensors are new ones each call: a
+        later replay never writes to them."""
+        if self._eager_reason(state) is not None:
+            SimEngine.eager_steps += n_steps
+            return self._steps(state, n_steps)
+        fn = self.stepper._bound_fast()
+        T = state.T
+        key = (n_steps, tuple(T.shape), T.dtype, T.device, id(fn),
+               id(fn._static_x))
+        chunk = self._graphs.pop(key, None)
+        if chunk is not None and chunk.graph is not None:
+            SimEngine.graph_steps += n_steps
+            out = self._replay(chunk, state)
+        else:
+            SimEngine.eager_steps += n_steps
+            if chunk is None:
+                chunk = _Chunk(pinned=(fn, fn._static_x))
+                out = self._steps(state, n_steps)
+            else:
+                out, chunk = self._capture(chunk.pinned, state, n_steps)
+        self._graphs[key] = chunk
+        while len(self._graphs) > GRAPH_KEYS:
+            del self._graphs[next(iter(self._graphs))]
+        return out
+
+    def _eager_reason(self, state: SimState) -> Optional[str]:
+        """Why :meth:`multi_step` runs ``state``'s chunk eagerly; None
+        where it replays a CUDA graph."""
+        if self.group is not None:
+            return "a process group"
+        if self._epi is None:
+            return "not the fused epilogue"
+        if profiling():
+            return "a profiler is collecting"
+        T = state.T
+        if not T.is_cuda or T.dtype != torch.float32 or T.shape[0] != 1:
+            return "not one float32 simulation on the card"
+        if torch.cuda.is_current_stream_capturing():
+            return "a capture is running"
+        return None
+
+    def _capture(self, pinned: tuple, state: SimState, n_steps: int):
+        """The chunk's eager run on a side stream, its result returned,
+        which warms up the capture of the same chunk on static copies of
+        ``state`` (``torch.cuda.graph``'s rules). The capture launches
+        nothing, so the wrappers' counters are put back after it."""
+        main = torch.cuda.current_stream(state.T.device)
+        side = torch.cuda.Stream(state.T.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self._steps(state, n_steps)
+        main.wait_stream(side)
+        for t in (*out[0], *out[1]):
+            t.record_stream(main)
+        static = SimState(*(x.clone() for x in state))
+        before = [f.launches for f in COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            st, tr = self._steps(static, n_steps)
+        launches = tuple(f.launches - n for f, n in zip(COUNTED, before))
+        for f, n in zip(COUNTED, before):
+            f.launches = n
+        ins = [getattr(static, f) for f in GRAPH_INPUTS]
+        inputs = tuple(([ins[i] for i in idx], [GRAPH_INPUTS[i] for i in idx])
+                       for idx in _by_dtype(ins))
+        outs = (*st, *tr)
+        return out, _Chunk(pinned, graph, inputs, outs, _by_dtype(outs),
+                           launches)
+
+    @staticmethod
+    def _replay(chunk: _Chunk, state: SimState):
+        """``state``'s ``GRAPH_INPUTS`` copied into the graph's inputs,
+        one replay, and the outputs copied into new tensors, one
+        multi-tensor copy per dtype each way (on the card's host, half the
+        time of a clone per field)."""
+        for dsts, names in chunk.inputs:
+            torch._foreach_copy_(dsts, [getattr(state, n) for n in names])
+        chunk.graph.replay()
+        for f, n in zip(COUNTED, chunk.launches):
+            f.launches += n
+        outs = chunk.outputs
+        fresh = [torch.empty_like(x) for x in outs]
+        for idx in chunk.groups:
+            torch._foreach_copy_([fresh[i] for i in idx],
+                                 [outs[i] for i in idx])
+        k = len(SimState._fields)
+        return SimState(*fresh[:k]), RolloutTrace(*fresh[k:])
+
+    def _steps(self, state: SimState, n_steps: int):
+        """The eager loop of :meth:`multi_step`."""
         n0 = int(state.n_step) if self._skip else 0
         mean_T, ts, dts = [], [], []
         for k in range(n_steps):

@@ -42,6 +42,13 @@ _profiling = torch._C._autograd._profiler_enabled
 _NO_SPAN = contextlib.nullcontext()
 
 
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` is collecting: :func:`span` opens its
+    ranges then, and ``SimEngine.multi_step`` runs its steps eagerly, so
+    that the ranges and the calls they wrap are in the trace."""
+    return _profiling()
+
+
 def span(name: str):
     """A ``record_function(name)`` range while a profiler is collecting;
     else one shared no-op context (0.6 µs a ``with`` on an H100
