@@ -13,7 +13,7 @@ raises ``ValueError``; none silently turns into another model.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
@@ -27,7 +27,9 @@ from .vit import ViTField
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The JAX ``ModelConfig``'s fields (multigpu.py:911-1087); ``dtype``
-    is a torch dtype (None: float32)."""
+    is a torch dtype (None: float32). ``mlp_dim`` is the port's own: the
+    ViT's MLP width, which JAX's registry fixes at 2 · n_hidden (ViT-Base,
+    Dosovitskiy et al. 2021, has 4 · 768)."""
 
     network: str = "newfluidnet"
     levels: int = 6
@@ -52,6 +54,8 @@ class ModelConfig:
     slice_num: int = 32
     mlp_ratio: int = 1
     n_layers: int = 5
+    # vit-specific: the MLP width; None keeps JAX's rule, 2 · n_hidden
+    mlp_dim: Optional[int] = None
     # grid
     H: int = 128
     W: int = 506
@@ -147,6 +151,7 @@ def build_model(cfg: ModelConfig, seed: int = 0, device=None):
         return ViTField(image_size=(cfg.H, cfg.W), patch_size=(ph, pw),
                         c_o=3 if cfg.p_pred else 2, dim=cfg.n_hidden,
                         depth=cfg.n_layers, heads=cfg.n_head,
-                        mlp_dim=cfg.n_hidden * 2, channels=c_i,
+                        mlp_dim=cfg.mlp_dim or cfg.n_hidden * 2,
+                        channels=c_i,
                         p_pred=cfg.p_pred, **common)
     raise ValueError(f"unknown network {net!r}")

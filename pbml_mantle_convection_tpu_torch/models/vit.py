@@ -11,6 +11,15 @@ Linear weight (out, in)). LayerNorm eps 1e-5, exact GELU, cls pooling.
 The attention is the plain einsum + softmax, as JAX computes it: no
 library attention kernel, so the float32 path stays comparable.
 
+While a profiler collects, a forward opens the spans (``utils/profiling.py
+::span``) ``pmc.vit.forward`` around it all and inside it
+``pmc.vit.embed`` (patch LayerNorm, Dense, LayerNorm, cls and position),
+``pmc.vit.norm`` (each pre-norm and the final norm), ``pmc.vit.qkv``,
+``pmc.vit.attn.core`` (scores, scale, softmax, the weighted sum of v),
+``pmc.vit.attn.out`` (the heads' merge and the output projection),
+``pmc.vit.mlp`` (Dense, GELU, Dense) and ``pmc.vit.head`` (the pooling
+and the last Dense); the residual adds lie in none but the forward's.
+
 Weights are drawn from ``np.random.default_rng(seed)``: Linear weights
 U(-1/√in, 1/√in) with zero biases (Flax's Dense with torch's fan-in
 bound), the position embedding and cls token N(0, 1); the model is moved
@@ -31,6 +40,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .layers import LayerNorm, keep_float32
 
 
@@ -67,7 +77,10 @@ class FeedForward(nn.Module):
         self.Dense_1 = _Linear(rng, hidden_dim, dim)
 
     def forward(self, x):
-        return self.Dense_1(F.gelu(self.Dense_0(self.LayerNorm_0(x))))
+        with span("pmc.vit.norm"):
+            x = self.LayerNorm_0(x)
+        with span("pmc.vit.mlp"):
+            return self.Dense_1(F.gelu(self.Dense_0(x)))
 
 
 class Attention(nn.Module):
@@ -88,17 +101,23 @@ class Attention(nn.Module):
 
     def forward(self, x):
         B, N, _ = x.shape
-        qkv = self.Dense_0(self.LayerNorm_0(x))
+        with span("pmc.vit.norm"):
+            x = self.LayerNorm_0(x)
+        with span("pmc.vit.qkv"):
+            qkv = self.Dense_0(x)
 
         def heads(t):
             return t.reshape(B, N, self.heads, self.dim_head).transpose(1, 2)
 
         q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
-        attn = torch.softmax(torch.einsum("bhnd,bhmd->bhnm", q, k)
-                             * self.dim_head ** -0.5, dim=-1)
-        out = torch.einsum("bhnm,bhmd->bhnd", attn, v)
-        out = out.transpose(1, 2).reshape(B, N, self.heads * self.dim_head)
-        return self.Dense_1(out) if self.project_out else out
+        with span("pmc.vit.attn.core"):
+            attn = torch.softmax(torch.einsum("bhnd,bhmd->bhnm", q, k)
+                                 * self.dim_head ** -0.5, dim=-1)
+            out = torch.einsum("bhnm,bhmd->bhnd", attn, v)
+        with span("pmc.vit.attn.out"):
+            out = out.transpose(1, 2).reshape(B, N,
+                                              self.heads * self.dim_head)
+            return self.Dense_1(out) if self.project_out else out
 
 
 class Transformer(nn.Module):
@@ -118,7 +137,8 @@ class Transformer(nn.Module):
         for i in range(self.depth):
             x = getattr(self, f"attn_{i}")(x) + x
             x = getattr(self, f"ff_{i}")(x) + x
-        return self.LayerNorm_0(x)
+        with span("pmc.vit.norm"):
+            return self.LayerNorm_0(x)
 
 
 class ViT(nn.Module):
@@ -158,15 +178,20 @@ class ViT(nn.Module):
         B, H, W, C = img.shape
         nh, nw = H // ph, W // pw
         n = nh * nw
-        # b (h ph) (w pw) c -> b (h w) (ph pw c)
-        x = img.reshape(B, nh, ph, nw, pw, C).permute(0, 1, 3, 2, 4, 5)
-        x = self.LayerNorm_1(self.Dense_0(self.LayerNorm_0(
-            x.reshape(B, n, ph * pw * C))))
-        cls = self.cls_token.expand(B, 1, self.dim)
-        x = torch.cat((cls, x), dim=1) + self.pos_embedding[:, :n + 1]
-        x = self.Transformer_0(x)
-        x = x.mean(dim=1) if self.pool == "mean" else x[:, 0]
-        return self.Dense_1(x)
+        with span("pmc.vit.forward"):
+            with span("pmc.vit.embed"):
+                # b (h ph) (w pw) c -> b (h w) (ph pw c)
+                x = img.reshape(B, nh, ph, nw, pw, C).permute(0, 1, 3, 2,
+                                                              4, 5)
+                x = self.LayerNorm_1(self.Dense_0(self.LayerNorm_0(
+                    x.reshape(B, n, ph * pw * C))))
+                cls = self.cls_token.expand(B, 1, self.dim)
+                x = (torch.cat((cls, x), dim=1)
+                     + self.pos_embedding[:, :n + 1])
+            x = self.Transformer_0(x)
+            with span("pmc.vit.head"):
+                x = x.mean(dim=1) if self.pool == "mean" else x[:, 0]
+                return self.Dense_1(x)
 
 
 class ViTField(nn.Module):

@@ -23,6 +23,11 @@ The spans, ``pmc.<layer>[.<part>]``:
   a block), ``pmc.transolver.mlp`` (the MLPs and the last Dense),
   ``pmc.attn.project``, ``pmc.attn.slice``, ``pmc.attn.out`` (the
   Physics-Attention's projections, core and output Dense);
+* ``pmc.vit.forward``, ``pmc.vit.embed``, ``pmc.vit.norm``,
+  ``pmc.vit.qkv``, ``pmc.vit.attn.core``, ``pmc.vit.attn.out``,
+  ``pmc.vit.mlp``, ``pmc.vit.head`` (``models/vit.py``: the patch
+  embedding, the LayerNorms, the attention's parts, the MLPs and the
+  head);
 * ``pmc.pt.solve`` (``StokesFn.__call__``), ``pmc.pt.check`` (the PT
   loop's residual check and its host read);
 * ``pmc.train.loss``, ``pmc.train.backward``, ``pmc.train.optimizer``
