@@ -11,8 +11,9 @@ Run from the repository root, with no arguments::
    kernels of ``layer_stack`` and ``trunk`` (learned-boundary and
    zero-padded instances, ``layer_stack``'s for each activation) and
    every ``slice_pool_kernel``
-   and ``slice_deslice_kernel`` instance hold TF32 tensor-core MMAs (the
-   slice kernels' in threes: 3xTF32);
+   and ``slice_deslice_kernel`` instance and the dense attention kernel
+   hold TF32 tensor-core MMAs (the slice and attention kernels' in
+   threes: 3xTF32);
    then, under PyTorch's default flags (TF32 convs allowed), holds a small
    NewFluidNet and a small TransolverStructured2D against the same modules
    in float64 and times the float32 guard of the port's convs;
@@ -62,7 +63,14 @@ Run from the repository root, with no arguments::
    checks 5 + 5 slice-attention launches per forward; splits one forward
    into projections, slice attention and the rest; compares the kernel
    path's u, v with the einsum formulation's; runs TransolverIrregular
-   once at the same N;
+   once at the same N; then (5b) holds the ViT's dense attention kernel
+   against float64 at ViT-Base's shape over the field (B = 1, 12 heads of
+   64, 4,049 tokens; q, k, v strided views of one qkv tensor) and times it
+   (ms a block) beside its bound (3xTF32 operations), the plain einsum +
+   softmax path and ``F.scaled_dot_product_attention`` in float32
+   (``library_ms``, a yardstick the port never calls); then (5c) runs
+   ViT-Base of the ``vit-serve-b1`` cell through ``ViTField`` at B = 1
+   without grad and checks 12 dense attention launches per forward;
 6. runs ``tools/torch_port_accuracy.py`` at 128×506 for 500 steps: the
    flagship ML_STOKES rollout (fused, module float32 and module TF32
    against the float64 module path with the energy step's plain version;
@@ -207,7 +215,8 @@ Run from the repository root, with no arguments::
    (b), under ``activation_instances``, and each (head, padding)
    instance of phase 14, with merge 3's own numbers and the launches of
    14 (b), under ``head_instances``, the top-level counts being the
-   learned GELU curl instance's), the card line again, and last
+   learned GELU curl instance's; the dense attention kernel's are phase
+   5c's), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--phase 10``, ``--phase 11``, ``--phase 12``, ``--phase 13``,
@@ -251,6 +260,8 @@ REPLACES = {
         "pbml_mantle_convection_tpu/ops/pallas_kernels.py:46",
     "slice_pool": "pbml_mantle_convection_tpu/ops/slice_attention.py:44",
     "slice_deslice": "pbml_mantle_convection_tpu/ops/slice_attention.py:60",
+    "dense_attention": "none (pbml_mantle_convection_tpu/models/vit.py:60 "
+                       "computes the ViT's attention as einsum + softmax)",
 }
 SOURCES = {
     "layer_stack": "pbml_mantle_convection_tpu_torch/csrc/layer_stack.cu",
@@ -262,6 +273,8 @@ SOURCES = {
     "slice_pool": "pbml_mantle_convection_tpu_torch/csrc/slice_attention.cu",
     "slice_deslice":
         "pbml_mantle_convection_tpu_torch/csrc/slice_attention.cu",
+    "dense_attention":
+        "pbml_mantle_convection_tpu_torch/csrc/dense_attention.cu",
 }
 # kernel vs plain version, max |diff| / max |plain|: both are float32 with
 # sums in another order (25·c_in-term conv dots, double vs float GroupNorm
@@ -269,9 +282,11 @@ SOURCES = {
 # differs only by FMA contraction (1e-12 in float64)
 # the slice kernels in float32 against their plain versions in float64:
 # float32 sums over N (pool) or G (deslice); 1e-12 when both are float64
+# the dense attention kernel in float32 against float64: 3xTF32 products
+# and exp2 over 4,049 keys (the plain float32 path reads ~1e-6)
 TOL = {"layer_stack": 1e-4, "trunk": 1e-4, "curl_advect_epilogue": 1e-5,
        "advect_diffuse_step_fused": 1e-5, "slice_pool": 1e-5,
-       "slice_deslice": 1e-5}
+       "slice_deslice": 1e-5, "dense_attention": 5e-6}
 TOL_ADVECT_F64 = 1e-12
 TOL_SLICE_F64 = 1e-12
 # bfloat16 slice kernels against the float32 plain version of the same
@@ -453,8 +468,9 @@ def check_sass(so) -> None:
     type and G bucket) run their products on the tensor cores: their SASS
     in the built library holds TF32 ``HMMA`` (or ``HGMMA``) instructions,
     the slice kernels' a multiple of three (3xTF32: three products for
-    each float32-accurate one). Prints the count per kernel instance
-    (``cuobjdump --dump-sass``)."""
+    each float32-accurate one); the dense attention kernel a multiple of
+    384, a tile's 2 × 64 m16n8k8 products three times each. Prints the
+    count per kernel instance (``cuobjdump --dump-sass``)."""
     import shutil
     from pathlib import Path
     from pbml_mantle_convection_tpu_torch.ops.branch_kernel import ACT_CODES
@@ -469,13 +485,22 @@ def check_sass(so) -> None:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1) if re.search(
-                r"blc_fused_kernel|slice_(pool|deslice)_kernel",
+                r"blc_fused_kernel|slice_(pool|deslice)_kernel|"
+                r"dense_attention_kernel",
                 m.group(1)) else None
             if fn:
                 counts[fn] = 0
         elif fn and re.search(r"\bH(G)?MMA\.\S*TF32", line):
             counts[fn] += 1
     slices = {}
+    dense = {k: counts.pop(k) for k in list(counts)
+             if "dense_attention_kernel" in k}
+    print(f"sass: dense_attention.cu dense_attention_kernel: "
+          f"{list(dense.values())} TF32 tensor-core MMA instructions")
+    if len(dense) != 1 or not all(n and n % 384 == 0
+                                  for n in dense.values()):
+        raise AssertionError(f"dense_attention_kernel without its 3xTF32 "
+                             f"MMAs: {dense}")
     for name, n in sorted(counts.items()):
         t = re.search(r"(slice_(?:pool|deslice)_kernel)I(\w+?)Li(\d+)E",
                       name)
@@ -1346,6 +1371,103 @@ def check_slice(heads=8, N=128 * 506, device="cuda", cases=SLICE_CASES,
             raise AssertionError(f"slice kernels disagree at N={n}, D={D}, "
                                  f"G={G}, {name_t}")
     return rec
+
+
+def check_dense_attention(B=1, heads=12, N=4049, device="cuda", seed=0):
+    """Phase 5b: the ViT's dense attention kernel at ViT-Base's shape over
+    the 128×506 field (12 heads of 64, 4,049 tokens), reading q, k and v
+    as the strided views of one qkv tensor, against float64 (≤
+    ``TOL["dense_attention"]``, the same bits twice, one launch a call);
+    timed (ms a block) beside its bound (3xTF32 operations), the plain
+    einsum + softmax path, and ``F.scaled_dot_product_attention`` in
+    float32, a yardstick the port never calls. Returns the record."""
+    import torch
+    import torch.nn.functional as F
+    from pbml_mantle_convection_tpu_torch.ops.dense_attention import (
+        dense_attention)
+
+    def plain(q, k, v, scale):
+        """``models/vit.py::Attention.forward`` off the kernel's route."""
+        attn = torch.softmax(torch.einsum("bhnd,bhmd->bhnm", q, k) * scale,
+                             dim=-1)
+        return torch.einsum("bhnm,bhmd->bhnd", attn, v)
+
+    D, scale = 64, 0.125
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(B, N, 3 * heads * D, generator=g, device=device)
+    q, k, v = (t.reshape(B, N, heads, D).transpose(1, 2)
+               for t in x.chunk(3, dim=-1))
+    n0 = dense_attention.launches
+    out = dense_attention(q, k, v, scale)
+    again = dense_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    if dense_attention.launches != n0 + 2:
+        raise AssertionError("dense_attention: not one launch a call")
+    want = plain(q.double(), k.double(), v.double(), scale)
+    err, rel = rel_err(out.double(), want)
+    plain_rel = rel_err(plain(q, k, v, scale).double(), want)[1]
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+    lib_rel = rel_err(library().double(), want)[1]
+    ms = cuda_ms(lambda: dense_attention(q, k, v, scale), n=20)
+    qms = queued_ms(lambda: dense_attention(q, k, v, scale), n=50)
+    pms = cuda_ms(lambda: plain(q, k, v, scale), n=5)
+    lms = cuda_ms(library, n=20)
+    flops = 2 * 2 * B * heads * N * N * D
+    nbytes = 4 * B * N * heads * D * 4
+    bms, by = bound_ms(nbytes, flops, tensor_cores=True)
+    print(f"dense_attention B={B} H={heads} N={N} D={D} float32 qkv views: "
+          f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
+          f"{TOL['dense_attention']}; plain float32 rel {plain_rel:.3e}, "
+          f"library rel {lib_rel:.3e}) ms={ms:.4f} (device only, launches "
+          f"queued: {qms:.4f}) plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}: "
+          f"{flops / 1e9:.2f} GFLOP at the 3xTF32 rate; bytes "
+          f"{bound_ms(nbytes, 0.0)[0]:.4f}) library_ms={lms:.4f} "
+          f"(scaled_dot_product_attention, float32; never called by the "
+          f"port); {flops / qms / 1e9:.1f} TFLOP/s")
+    if not (rel <= TOL["dense_attention"] and torch.equal(out, again)):
+        raise AssertionError(f"dense_attention disagrees: rel {rel}, "
+                             f"repeatable {torch.equal(out, again)}")
+    return dict(max_abs_err=err, rel=rel, ms=ms, queued_ms=qms, plain_ms=pms,
+                bound_ms=bms, bound_by=by, library_ms=lms)
+
+
+def run_vit(iters=5, H=128, W=506, device="cuda"):
+    """Phase 5c: ViT-Base of the ``vit-serve-b1`` cell (12 blocks of 768,
+    12 heads of 64, MLP 3,072, 8×2 patches: 4,049 tokens) through
+    ``ViTField`` at B = 1 without grad, the main path of the ViT's
+    serving: ``dense_attention.launches`` counted from zero over ``iters``
+    forwards after a warm-up, 12 a forward. Returns the launches."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.models.vit import ViTField
+    from pbml_mantle_convection_tpu_torch.ops.dense_attention import (
+        dense_attention)
+    field = ViTField((H, W), (8, 2), dim=768, depth=12, heads=12,
+                     mlp_dim=3072, device=device)
+    x = torch.rand(1, H, W, 7, device=device,
+                   generator=torch.Generator(device).manual_seed(0))
+    with torch.no_grad():
+        field(x)
+        torch.cuda.synchronize()
+        dense_attention.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            u, v, _ = field(x)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    got = dense_attention.launches
+    if got != 12 * iters or not (torch.isfinite(u).all()
+                                 and torch.isfinite(v).all()):
+        raise AssertionError(f"vit: {got} dense_attention launches over "
+                             f"{iters} forwards, want {12 * iters}; finite "
+                             f"u, v: {bool(torch.isfinite(u).all())}, "
+                             f"{bool(torch.isfinite(v).all())}")
+    print(f"vit-base {H}x{W} B=1 serving forward (ViTField, no grad): "
+          f"{ms:.3f} ms per forward, dense_attention launches {got} = 12 "
+          f"per forward ({iters} forwards)")
+    return got
 
 
 def check_default_flags(device="cuda"):
@@ -3990,6 +4112,8 @@ def main(argv=None) -> int:
         return run_phase(args.phase)
     import bench_torch
     from pbml_mantle_convection_tpu_torch.ops import _cuda
+    from pbml_mantle_convection_tpu_torch.ops.dense_attention import (
+        dense_attention)
     from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
         slice_deslice, slice_pool)
 
@@ -4028,6 +4152,10 @@ def main(argv=None) -> int:
         launch[k] += n
     transolver_checks(counters)
     print(f"transolver: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["dense_attention"] = check_dense_attention()
+    vit_launches = run_vit()
+    print(f"dense attention: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     run_accuracy()
@@ -4070,6 +4198,10 @@ def main(argv=None) -> int:
           f"queued: {floor['plain']:.5f} ms device only per launch "
           f"(cooperative {floor['cooperative']:.5f}, with one grid sync "
           f"{floor['cooperative_sync']:.5f})")
+    # the ViT's kernel, added last (the phases above check that every
+    # counter they hold reads their own launches): phase 5c's
+    counters["dense_attention"] = dense_attention
+    launch["dense_attention"] = vit_launches
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launch[k], **rec[k])
                for k in counters]

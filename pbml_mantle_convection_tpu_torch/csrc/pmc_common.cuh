@@ -22,9 +22,10 @@ constexpr int kMaxDevices = 64;
 // Internal linkage: every .cu file compiles its own copies.
 namespace {
 
-// TF32 tensor-core products (blc_layer.cuh, slice_attention.cu). A float
-// x splits as hi = to_tf32(x), lo = to_tf32(x - hi); the 3xTF32 sum
-// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi in float32 is float32-accurate.
+// TF32 tensor-core products (blc_layer.cuh, slice_attention.cu,
+// dense_attention.cu). A float x splits as hi = to_tf32(x),
+// lo = to_tf32(x - hi); the 3xTF32 sum a_lo*b_hi + a_hi*b_lo + a_hi*b_hi
+// in float32 is float32-accurate.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
@@ -44,6 +45,23 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo: hi rounded to TF32 by integer ops (cvt.rna costs more), lo
+// passed whole (the tensor cores read the top 19 bits of a TF32 operand)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a . b in 3xTF32: the small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma_tf32(d, al[0], al[1], al[2], al[3], bh0, bh1);
+  mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bl0, bl1);
+  mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bh0, bh1);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

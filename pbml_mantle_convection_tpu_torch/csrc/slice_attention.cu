@@ -93,7 +93,8 @@ using pmc::cp_async16_zfill;
 using pmc::cp_async_commit;
 using pmc::cp_async_wait_all;
 using pmc::cp_async_wait_pending;
-using pmc::mma_tf32;
+using pmc::mma3;
+using pmc::split;
 
 constexpr int kMaxTensorCoreDim = 128;  // D and G of the tensor-core kernels
 constexpr int kSmemMax = 232448;  // 227 KB: the most one block may use
@@ -239,23 +240,6 @@ int pick_stride(int min_elems, int esize, bool row_g) {
   int s = round_up(min_elems, step);
   while (!conflict_free(s, esize, row_g)) s += step;
   return s;
-}
-
-// x = hi + lo: hi rounded to TF32 by integer ops (cvt.rna costs more), lo
-// passed whole (the tensor cores read the top 19 bits of a TF32 operand)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a . b in 3xTF32: the small terms first
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-  mma_tf32(d, al[0], al[1], al[2], al[3], bh0, bh1);
-  mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bl0, bl1);
-  mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bh0, bh1);
 }
 
 // The logits of a warp's 16 points: acc[j] (16 x 8: slices 8j..8j+7, the

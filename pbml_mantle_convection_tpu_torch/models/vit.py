@@ -8,14 +8,23 @@ submodules carry Flax's automatic names (``LayerNorm_0``, ``Dense_0``,
 ``Transformer_0``, ``attn_{i}``, ``ff_{i}``, ...), so a Flax tree loads
 through ``utils/flax_convert.py`` (a Dense kernel (in, out) becomes a
 Linear weight (out, in)). LayerNorm eps 1e-5, exact GELU, cls pooling.
-The attention is the plain einsum + softmax, as JAX computes it: no
-library attention kernel, so the float32 path stays comparable.
+The attention core follows ``ops/dense_attention.py::route``: on the
+card, for float32 inputs outside autograd, ``dense_attention``, one
+hand-written kernel a block (``csrc/dense_attention.cu``; it replaces no
+TPU kernel: JAX computes the core as einsum + softmax) that never writes
+the scores, with q·kᵀ and the weighted sum of v in 3xTF32 on the tensor
+cores (float32-accurate; bounded by operations at that rate) and a head
+width of 64; elsewhere (the CPU, training under autograd, bfloat16,
+float16, float64) the plain einsum + scale + softmax + einsum in
+``Attention.forward``, as JAX computes it. No library attention kernel
+runs, so the float32 path stays comparable.
 
 While a profiler collects, a forward opens the spans (``utils/profiling.py
 ::span``) ``pmc.vit.forward`` around it all and inside it
 ``pmc.vit.embed`` (patch LayerNorm, Dense, LayerNorm, cls and position),
 ``pmc.vit.norm`` (each pre-norm and the final norm), ``pmc.vit.qkv``,
-``pmc.vit.attn.core`` (scores, scale, softmax, the weighted sum of v),
+``pmc.vit.attn.core`` (scores, scale, softmax, the weighted sum of v;
+on the kernel's route ``pmc.kernel.dense_attention`` inside it),
 ``pmc.vit.attn.out`` (the heads' merge and the output projection),
 ``pmc.vit.mlp`` (Dense, GELU, Dense) and ``pmc.vit.head`` (the pooling
 and the last Dense); the residual adds lie in none but the forward's.
@@ -40,6 +49,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.dense_attention import dense_attention, route
 from ..utils.profiling import span
 from .layers import LayerNorm, keep_float32
 
@@ -111,9 +121,13 @@ class Attention(nn.Module):
 
         q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
         with span("pmc.vit.attn.core"):
-            attn = torch.softmax(torch.einsum("bhnd,bhmd->bhnm", q, k)
-                                 * self.dim_head ** -0.5, dim=-1)
-            out = torch.einsum("bhnm,bhmd->bhnd", attn, v)
+            if route(q.device.type, q.dtype, qkv.requires_grad,
+                     self.dim_head) == "kernel":
+                out = dense_attention(q, k, v, self.dim_head ** -0.5)
+            else:
+                attn = torch.softmax(torch.einsum("bhnd,bhmd->bhnm", q, k)
+                                     * self.dim_head ** -0.5, dim=-1)
+                out = torch.einsum("bhnm,bhmd->bhnd", attn, v)
         with span("pmc.vit.attn.out"):
             out = out.transpose(1, 2).reshape(B, N,
                                               self.heads * self.dim_head)

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("layer_stack.cu", "trunk.cu", "epilogue.cu", "advect.cu",
-           "slice_attention.cu")
+           "slice_attention.cu", "dense_attention.cu")
 HEADERS = ("pmc_common.cuh", "blc_layer.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -66,6 +66,10 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
                                   _I, _I, _I, _I, _P]
        for t in SLICE_TYPES},
+    # csrc/dense_attention.cu: q, k, v, out, B, H, N, the (b, h, n) strides
+    # of q, k, v and out, the scale times log2(e), the stream
+    "pmc_dense_attention": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L,
+                            _L, _L, _L, _L, _L, _L, _L, _F, _P],
 }
 
 

@@ -18,7 +18,8 @@ The spans, ``pmc.<layer>[.<part>]``:
   after the steps); ``pmc.engine.snapshot`` (the fields' copy to the host
   in ``SimEngine.rollout``);
 * ``pmc.kernel.layer_stack``, ``.trunk``, ``.epilogue``, ``.advect``,
-  ``.slice_pool``, ``.slice_deslice`` (the kernel wrappers in ``ops/``);
+  ``.slice_pool``, ``.slice_deslice``, ``.dense_attention`` (the kernel
+  wrappers in ``ops/``; the last inside ``pmc.vit.attn.core``);
 * ``pmc.transolver.forward``, ``pmc.transolver.norm`` (each LayerNorm of
   a block), ``pmc.transolver.mlp`` (the MLPs and the last Dense),
   ``pmc.attn.project``, ``pmc.attn.slice``, ``pmc.attn.out`` (the
