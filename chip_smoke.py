@@ -606,13 +606,14 @@ def check_layer_kernels(H, W, r_p="learned", act="gelu", check=True,
         layer_stack, layer_stack_plain, layer_stacks, layer_stacks_plain)
     from pbml_mantle_convection_tpu_torch.ops.merge_kernel import (
         trunk, trunk_plain)
+    from pbml_mantle_convection_tpu_torch.sim.stepper import viscosity
 
     _, fast, engine, T0 = built or flagship(H, W, "cuda", r_p, act)
     tag = f"[{r_p}]" if act == "gelu" else f"[{r_p}, {act}]"
     eng = engine(fast)
     T = eng.init_state(T0).T
-    eng.stepper._bound_fast()          # binds the static input channels
-    x = fast.input_from_T(T)
+    st = eng.stepper
+    x = st.executor_input(T, viscosity(T, st.static, st.params))
 
     # the main path's stage inputs, from the plain chain
     n_pyr = len(fast.branches) - 1
@@ -757,7 +758,7 @@ def check_epilogue(eng, psi, T):
     from pbml_mantle_convection_tpu_torch.ops.epilogue_kernel import (
         curl_advect_epilogue, curl_advect_epilogue_plain)
     H, W = T.shape
-    consts, s, src = eng._epi, eng.stepper.scaler, eng.stepper._raq
+    consts, s, src = eng._epi, eng.stepper.scaler, eng.stepper.heating
 
     def epi(psi=psi, T=T):
         return curl_advect_epilogue(psi, T, consts, s, src)
@@ -827,7 +828,7 @@ def check_advect(eng, T):
     _, H, W = T.shape
     u, v = (float(eng.stepper.scaler) * torch.randn(
         1, H, W, generator=g, device=dev) for _ in range(2))
-    met, src = eng.stepper._metrics, eng.stepper._raq
+    met, src = eng.stepper.metrics, eng.stepper.heating
     field = src + 0.1 * torch.randn(1, H - 2, W - 2, generator=g,
                                     device=dev)
     met64 = grid_metrics(*eng.grid.coords(dev, torch.float64),
@@ -1033,7 +1034,6 @@ def plain_step(eng, state, n_step, model):
     NewFluidNet module for the surrogate, the plain energy step; the PT
     solve and the sources are torch ops in both."""
     import torch
-    from pbml_mantle_convection_tpu_torch.constants import COORD_SCALE
     from pbml_mantle_convection_tpu_torch.ops.advect_kernel import (
         advect_diffuse_step_plain)
     from pbml_mantle_convection_tpu_torch.ops.stencils import (
@@ -1048,14 +1048,13 @@ def plain_step(eng, state, n_step, model):
         assemble_fluidnet_input)
     st, prm, T = eng.stepper, eng.params, state.T
     if eng.mode == "GAIA":
-        V = fk_viscosity(prm.fkt, prm.fkp,
-                         1.0 - st._static.yc_feat * COORD_SCALE, T)
+        V = fk_viscosity(prm.fkt, prm.fkp, st.static.depth, T)
         if n_step % eng.intervene_ts == 0:
             u, v, p = eng.stokes_fn(T, V)
         else:
             u, v, p = state.u, state.v, state.p
     else:
-        x, V = assemble_fluidnet_input(T, st._static, prm)
+        x, V = assemble_fluidnet_input(T, st.static, prm)
         u, v, p = model(x)
         u, v = u * st.scaler, v * st.scaler
         if p is None:
@@ -1065,8 +1064,8 @@ def plain_step(eng, state, n_step, model):
     src = decay_heating(prm.raq, state.t, eng.radioactive_decay)
     if eng.Di > 0:
         src = (src - eng.Di * v[..., 1:-1, 1:-1] * T[..., 1:-1, 1:-1]
-               + eng.Di * viscous_dissipation(u, v, V, st._metrics))
-    T_new, dt = advect_diffuse_step_plain(u, v, T, src, st._metrics,
+               + eng.Di * viscous_dissipation(u, v, V, st.metrics))
+    T_new, dt = advect_diffuse_step_plain(u, v, T, src, st.metrics,
                                           cn_max=st.cn_max,
                                           core_cool=eng.core_cool)
     T_core = state.T_core
@@ -2958,7 +2957,7 @@ def run_other_models(counters, bench_sps, device="cuda", steps=OTHER_STEPS,
         T0 = rollout.initial_temperature(grid, 3.0, 1e8, 10.0, "hot")
         x, _ = assemble_fluidnet_input(
             torch.as_tensor(T0, dtype=torch.float32, device=device)[None],
-            st._static, params)
+            st.static, params)
         module_vs_f64("(a) symmetric flagship", net, x)
 
         # (b) the blurr flagship through the fused executor
@@ -3507,11 +3506,12 @@ def sine_layer_checks(built, H, W, r_p):
         pack_stack)
     from pbml_mantle_convection_tpu_torch.ops.merge_kernel import (
         trunk, trunk_plain, trunk_weights)
+    from pbml_mantle_convection_tpu_torch.sim.stepper import viscosity
 
     model, fast, engine, T0 = built
     eng = engine(fast)
-    eng.stepper._bound_fast()
-    x = fast.input_from_T(eng.init_state(T0).T)
+    st, T = eng.stepper, eng.init_state(T0).T
+    x = st.executor_input(T, viscosity(T, st.static, st.params))
     m64 = copy.deepcopy(model).double()
     g = fluid_layer_groups(model.c_h)
 

@@ -39,11 +39,9 @@ from typing import Optional
 
 import torch
 
-from ..constants import COORD_SCALE, visc_feature
 from ..ops.branch_kernel import (StackWeights, layer_stack, layer_stacks,
                                  pack_stack)
 from ..ops.merge_kernel import trunk, trunk_weights
-from ..physics.viscosity import fk_viscosity_clipped
 from ..utils.profiling import span
 from .fluidnet import NewFluidNet
 from .layers import BoundaryLearnedConvolution2D, fluid_layer_groups
@@ -147,10 +145,9 @@ class FastNewFluidNet:
     """Fused executor of ``model`` on an H × W grid (see module doc).
 
     ``fast(x)`` with x (1, H, W, c_i) NHWC returns (u, v, p|None) like
-    the module (p with ``p_pred``); ``fast.apply_psi_from_T(T)`` returns
-    merge 3's raw (c_o, H, W) output from a (1, H, W) temperature once
-    :meth:`bind_input_assembly` has fixed the grid's static input
-    channels.
+    the module (p with ``p_pred``); ``fast.psi(x)`` with x (c_i, H, W)
+    planar returns merge 3's raw (c_o, H, W) output (the stepper builds
+    that input: ``sim/stepper.py::TimeStepper.executor_input``).
     """
 
     def __init__(self, model: NewFluidNet, H: int, W: int):
@@ -187,9 +184,6 @@ class FastNewFluidNet:
                                    coarse_hw, H, W)
         self.merge2 = merge(model.conv_2)
         self.merge3 = merge(model.conv_3, use_act=False)
-        # set by bind_input_assembly
-        self._static_x = self._depth = None
-        self._in_static = self._in_params = None
 
     @property
     def zero_pad(self) -> bool:
@@ -226,37 +220,3 @@ class FastNewFluidNet:
         the weights (every bfloat16 value is a float32 one). Feed it the
         input in float32; it returns float32."""
         return cls(copy.deepcopy(model).float(), H, W)
-
-    def bind_input_assembly(self, static, params) -> None:
-        """Fix the five input channels that are constants of the
-        (grid, params) pair (xc/4, yc/4, raq, fkt, fkp); per step only
-        the viscosity and temperature channels change
-        (``sim/stepper.py::assemble_fluidnet_input``)."""
-        z = torch.zeros_like(static.xc_feat)
-        self._static_x = torch.stack(
-            [static.xc_feat, static.yc_feat, z, static.raq_nd,
-             static.fkt_nd, static.fkp_nd, z]).contiguous()
-        self._depth = (1.0 - static.yc_feat * COORD_SCALE).contiguous()
-        self._in_static, self._in_params = static, params
-
-    def input_from_T(self, T: torch.Tensor, V=None) -> torch.Tensor:
-        """(1, H, W) temperature → (7, H, W) planar network input."""
-        with span("pmc.engine.input"):
-            if V is None:
-                V = fk_viscosity_clipped(self._in_params.fkt,
-                                         self._in_params.fkp, self._depth, T)
-            x = self._static_x.clone()
-            x[2] = visc_feature(V[0])
-            x[6] = T[0]
-            return x
-
-    def apply_from_T(self, T: torch.Tensor, V=None):
-        """(1, H, W) temperature (and its clipped viscosity, when the
-        caller has it) → (u, v, p|None) through the bound input."""
-        return self.m.head(self.psi(self.input_from_T(T, V))[None])
-
-    def apply_psi_from_T(self, T: torch.Tensor, V=None) -> torch.Tensor:
-        """(1, H, W) temperature → merge 3's raw (c_o, H, W) output (before
-        mean subtraction and a_bound); channel 0 is the stream function
-        the epilogue takes for a curl head without ``p_pred``."""
-        return self.psi(self.input_from_T(T, V))

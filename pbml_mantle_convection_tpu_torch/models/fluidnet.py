@@ -46,6 +46,14 @@ def _head(m, y, curl_head=curl_head_padded):
     return u, v, (y[:, 1] if m.p_pred else None)
 
 
+def plain_curl_head(m) -> bool:
+    """Whether ``m``'s head is the curl of its one output channel with
+    nothing more (no ``blurr``, no ``p_pred``, not the ``mae``/``mass``
+    heads): the head the fused curl + advection epilogue computes."""
+    return (m.loss_type not in ("mae", "mass") and not m.blurr
+            and not m.p_pred)
+
+
 class _Branches(nn.Module):
     """The trunk that the family shares: stem FluidLayer ``conv_0`` →
     ``levels`` parallel branches (branch *l* avg-pools *l* times by

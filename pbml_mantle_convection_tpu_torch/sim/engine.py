@@ -80,7 +80,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..constants import COORD_SCALE
+from ..models.fluidnet import plain_curl_head
 from ..ops.advect_kernel import advect_diffuse_step_fused
 from ..ops.branch_kernel import layer_stack
 from ..ops.epilogue_kernel import curl_advect_epilogue, epilogue_consts
@@ -89,7 +89,7 @@ from ..ops.stencils import stamp_temperature_bc
 from ..physics.advection import stability_dt, viscous_dissipation
 from ..physics.viscosity import fk_viscosity
 from ..utils.profiling import profiling, span
-from .stepper import TimeStepper, plain_curl_head
+from .stepper import TimeStepper
 
 MODES = ("ML", "ML_STOKES", "ML_PRE", "GAIA")
 # 4-component radioactive-decay constants (prepare_gaia_ini.py:81-92).
@@ -134,9 +134,9 @@ class RolloutTrace(NamedTuple):
 
 class _Chunk(NamedTuple):
     """A chunk length met by :meth:`SimEngine.multi_step` on the card.
-    ``pinned`` holds the executor and its bound input, which the graph
-    reads and the chunk's key names by identity. Once met, ``graph`` is
-    None; once captured: the graph; ``inputs``, per dtype, its input
+    ``pinned`` holds the executor and the stepper's input template,
+    which the graph reads and the chunk's key names by identity. Once
+    met, ``graph`` is None; once captured: the graph; ``inputs``, per dtype, its input
     tensors and the fields of ``GRAPH_INPUTS`` copied into them;
     ``outputs``, its output tensors (the state's fields, then the
     records); ``groups``, the indices of the outputs of each dtype;
@@ -210,30 +210,27 @@ class SimEngine:
         self.Di, self.stokes_fn = Di, stokes_fn
         self.device, self.dtype = stepper.device, stepper.dtype
         self.group = process_group
-        self._dx_min = stepper._metrics.dx_min
+        self._dx_min = stepper.metrics.dx_min
         # the energy kernel's types are float32 and float64: a bfloat16
         # state steps on float32 copies of its bfloat16 metrics
-        self._metrics = stepper._metrics
+        self._metrics = stepper.metrics
         if self.dtype == torch.bfloat16:
-            self._metrics = type(stepper._metrics)(
-                *(m.float() for m in stepper._metrics))
+            self._metrics = type(stepper.metrics)(
+                *(m.float() for m in stepper.metrics))
         # the momentum skip reads n_step (host counter in multi_step)
         self._skip = mode == "GAIA" and intervene_ts > 1
-        # GAIA's FK viscosity is unclipped; depth 1 - yc on the device
-        self._depth = 1.0 - stepper._static.yc_feat * COORD_SCALE
         # the fused epilogue covers ML/ML_STOKES with Di = 0 and no core
         # cooling, when the surrogate is the fused executor of a plain
         # curl head (the epilogue takes the raw stream function: it would
         # skip a blur and drop p, and the mae/mass heads have none; JAX's
-        # engine gates them off the same way, engine.py:184-188);
-        # stokes_psi also gates B = 1 per step
+        # engine gates them off the same way, engine.py:184-188); _step
+        # takes it at B = 1
         self._epi = None
-        fn = stepper.apply_fn
+        fn = stepper.executor
         if (mode in ("ML", "ML_STOKES") and Di == 0.0 and not core_cool
-                and process_group is None
-                and hasattr(fn, "apply_psi_from_T")
+                and process_group is None and fn is not None
                 and plain_curl_head(fn.m)):
-            self._epi = epilogue_consts(stepper._metrics, fn.m.a_bound,
+            self._epi = epilogue_consts(stepper.metrics, fn.m.a_bound,
                                         stepper.cn_max)
         self._graphs = {}   # chunk key -> _Chunk, the newest last
 
@@ -265,7 +262,7 @@ class SimEngine:
 
     def _source(self, state: SimState):
         if not self.radioactive_decay:
-            return self.stepper._raq
+            return self.stepper.heating
         return decay_heating(self.params.raq, state.t, True)
 
     def _energy_sources(self, state: SimState, T, u, v, V):
@@ -279,7 +276,7 @@ class SimEngine:
             src = (src
                    - self.Di * v[..., 1:-1, 1:-1] * T[..., 1:-1, 1:-1]
                    + self.Di * viscous_dissipation(
-                       u, v, V, self.stepper._metrics))
+                       u, v, V, self.stepper.metrics))
         return src
 
     def _shared_dt(self, u, v):
@@ -349,20 +346,20 @@ class SimEngine:
         if self.stepper.net in ("unet", "iunet") and self.mode != "GAIA":
             return self.step_unet(state)
         T = state.T
-        if self._epi is not None:
-            sp = self.stepper.stokes_psi(T)
-            if sp is not None:
-                psi, V, s = sp
-                with span("pmc.engine.energy"):
-                    u, v, T_new, dt = curl_advect_epilogue(
-                        psi[0], T[0], self._epi, s, self._source(state))
-                    return SimState(
-                        T=T_new[None], u=u[None], v=v[None], p=state.p, V=V,
-                        t=state.t + dt, dt=dt, n_step=state.n_step + 1,
-                        T_core=state.T_core)
+        if self._epi is not None and T.shape[0] == 1:
+            psi, V = self.stepper.stokes_psi(T)
+            with span("pmc.engine.energy"):
+                u, v, T_new, dt = curl_advect_epilogue(
+                    psi[0], T[0], self._epi, self.stepper.scaler,
+                    self._source(state))
+                return SimState(
+                    T=T_new[None], u=u[None], v=v[None], p=state.p, V=V,
+                    t=state.t + dt, dt=dt, n_step=state.n_step + 1,
+                    T_core=state.T_core)
 
         if self.mode == "GAIA":
-            V = fk_viscosity(self.params.fkt, self.params.fkp, self._depth, T)
+            V = fk_viscosity(self.params.fkt, self.params.fkp,
+                             self.stepper.static.depth, T)
             if n_step % self.intervene_ts == 0:
                 u, v, p = self.stokes_fn(T, V)
             else:
@@ -413,10 +410,10 @@ class SimEngine:
         if self._eager_reason(state) is not None:
             SimEngine.eager_steps += n_steps
             return self._steps(state, n_steps)
-        fn = self.stepper._bound_fast()
+        pinned = (self.stepper.executor, self.stepper.template)
         T = state.T
-        key = (n_steps, tuple(T.shape), T.dtype, T.device, id(fn),
-               id(fn._static_x))
+        key = (n_steps, tuple(T.shape), T.dtype, T.device,
+               *(id(x) for x in pinned))
         chunk = self._graphs.pop(key, None)
         if chunk is not None and chunk.graph is not None:
             SimEngine.graph_steps += n_steps
@@ -424,7 +421,7 @@ class SimEngine:
         else:
             SimEngine.eager_steps += n_steps
             if chunk is None:
-                chunk = _Chunk(pinned=(fn, fn._static_x))
+                chunk = _Chunk(pinned=pinned)
                 out = self._steps(state, n_steps)
             else:
                 out, chunk = self._capture(chunk.pinned, state, n_steps)

@@ -22,6 +22,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from ..constants import COORD_SCALE, SimParams, velocity_scaler, visc_feature
+from ..models.fast_path import FastNewFluidNet
 from ..models.fluidnet import HALF_HEAD
 from ..ops.advect_kernel import advect_diffuse_step_fused
 from ..ops.stencils import stamp_temperature_bc
@@ -45,22 +46,15 @@ NO_ROLLOUT = {
 }
 
 
-def plain_curl_head(m) -> bool:
-    """Whether ``m``'s head is the curl of its one output channel with
-    nothing more (no ``blurr``, no ``p_pred``, not the ``mae``/``mass``
-    heads): the head the fused curl + advection epilogue computes."""
-    return (m.loss_type not in ("mae", "mass") and not m.blurr
-            and not m.p_pred)
-
-
 class StaticFields(NamedTuple):
-    """Per-grid constant feature planes, (H, W) each."""
+    """Per-grid constant planes, (H, W) each."""
 
     xc_feat: torch.Tensor   # xc / 4
     yc_feat: torch.Tensor   # yc / 4
     raq_nd: torch.Tensor
     fkt_nd: torch.Tensor
     fkp_nd: torch.Tensor
+    depth: torch.Tensor     # 1 - yc, the FK viscosity's depth
 
 
 def make_static_fields(grid: Grid, params: SimParams, dtype=torch.float32,
@@ -70,15 +64,15 @@ def make_static_fields(grid: Grid, params: SimParams, dtype=torch.float32,
     def full(v):
         return torch.full_like(xc, v)
 
-    return StaticFields(xc / COORD_SCALE, yc / COORD_SCALE,
-                        full(params.raq_nd), full(params.fkt_nd),
-                        full(params.fkp_nd))
+    yc_feat = yc / COORD_SCALE
+    return StaticFields(xc / COORD_SCALE, yc_feat, full(params.raq_nd),
+                        full(params.fkt_nd), full(params.fkp_nd),
+                        1.0 - yc_feat * COORD_SCALE)
 
 
 def viscosity(T, static: StaticFields, params: SimParams):
     """Clipped FK viscosity of a (B, H, W) temperature."""
-    return fk_viscosity_clipped(params.fkt, params.fkp,
-                                1.0 - static.yc_feat * COORD_SCALE, T)
+    return fk_viscosity_clipped(params.fkt, params.fkp, static.depth, T)
 
 
 def assemble_fluidnet_input(T, static: StaticFields, params: SimParams):
@@ -104,8 +98,7 @@ def assemble_unet_input(T, u_prev, v_prev, dt, static: StaticFields,
     fkp_nd, log10(V)/8, T, u_prev, v_prev[, p_prev]) of (B, H, W) fields
     → ((B, H, W, C), V), V the unclipped FK viscosity (reference:
     pytorch_networks_convae.py:419-441, datasetio.py:258-274)."""
-    V = fk_viscosity(params.fkt, params.fkp,
-                     1.0 - static.yc_feat * COORD_SCALE, T)
+    V = fk_viscosity(params.fkt, params.fkp, static.depth, T)
     b = T.shape[0]
 
     def bcast(p):
@@ -168,13 +161,18 @@ class TimeStepper:
 
     ``apply_fn``: (B, H, W, 7) NHWC → (u, v, p|None), e.g. a
     :class:`~..models.fluidnet.NewFluidNet`; a
-    :class:`~..models.fast_path.FastNewFluidNet` runs one simulation per
-    call (B calls per step) and also serves the fused path at B = 1
-    (:meth:`stokes_psi`); None for a stepper without a surrogate.
+    :class:`~..models.fast_path.FastNewFluidNet` (``executor``) takes the
+    planar input of one simulation (:meth:`executor_input`; B calls per
+    step) and also serves the engine's fused path (:meth:`stokes_psi`);
+    None for a stepper without a surrogate.
     ``net`` "unet" or "iunet": ``apply_fn`` maps the U-Net input to
     (u, v, p|None, T) (:meth:`step_unet`), with the previous pressure as
     its 11th channel when ``unet_p_pred``. ``core_cool`` leaves the
     bottom row of :meth:`step` free.
+
+    ``static``, ``metrics`` and ``heating`` (the constant internal
+    heating RaQ, a 0-d tensor) are the grid's and the parameters'
+    constants the engine's energy step reads too.
     """
 
     def __init__(self, grid: Grid, params: SimParams,
@@ -186,24 +184,33 @@ class TimeStepper:
         self.net, self.unet_p_pred = net, unet_p_pred
         self.cn_max, self.core_cool, self.dtype = cn_max, core_cool, dtype
         self.device = torch.device(device or "cuda")
-        self._static = make_static_fields(grid, params, dtype, self.device)
-        self._metrics = grid_metrics(*grid.coords(self.device, dtype),
-                                     aspect=grid.aspect)
-        self._raq = torch.full((), params.raq, dtype=dtype,
-                               device=self.device)
+        self.static = make_static_fields(grid, params, dtype, self.device)
+        self.metrics = grid_metrics(*grid.coords(self.device, dtype),
+                                    aspect=grid.aspect)
+        self.heating = torch.full((), params.raq, dtype=dtype,
+                                  device=self.device)
         self.scaler = float(velocity_scaler(params.raq, params.fkt,
                                             params.fkp))
+        # the fused executor, and its planar input with the viscosity
+        # and temperature channels left zero: the five other channels
+        # are constants of the (grid, params) pair
+        self.executor = self.template = None
+        if isinstance(apply_fn, FastNewFluidNet):
+            st, z = self.static, torch.zeros_like(self.static.xc_feat)
+            self.executor = apply_fn
+            self.template = torch.stack(
+                [st.xc_feat, st.yc_feat, z, st.raq_nd, st.fkt_nd,
+                 st.fkp_nd, z]).contiguous()
 
-    def _bound_fast(self):
-        """The fused executor with this stepper's input channels bound,
-        or None when ``apply_fn`` is not one."""
-        fn = self.apply_fn
-        if not hasattr(fn, "bind_input_assembly"):
-            return None
-        if (fn._in_static is not self._static
-                or fn._in_params is not self.params):
-            fn.bind_input_assembly(self._static, self.params)
-        return fn
+    def executor_input(self, T, V):
+        """(1, H, W) temperature and its clipped viscosity → the
+        executor's (7, H, W) planar input, the channels of
+        :func:`assemble_fluidnet_input`."""
+        with span("pmc.engine.input"):
+            x = self.template.clone()
+            x[2] = visc_feature(V[0])
+            x[6] = T[0]
+            return x
 
     @torch.no_grad()
     def stokes(self, T):
@@ -212,37 +219,33 @@ class TimeStepper:
         if self.apply_fn is None:
             raise ValueError("TimeStepper.stokes: this stepper has no "
                              "surrogate (apply_fn=None)")
-        fn = self._bound_fast()
+        fn = self.executor
         if fn is not None:
             with span("pmc.engine.input"):
-                V = viscosity(T, self._static, self.params)
-            if T.shape[0] == 1:
-                u, v, p = fn.apply_from_T(T, V)
-            else:
-                # each simulation through the B = 1 executor in turn, as
-                # the JAX stepper's lax.map does (stepper.py:212-228),
-                # each one's p stacked with ``p_pred``
-                outs = [fn.apply_from_T(T[i:i + 1], V[i:i + 1])
-                        for i in range(T.shape[0])]
-                u, v, p = (torch.cat(f) if f[0] is not None else None
-                           for f in zip(*outs))
+                V = viscosity(T, self.static, self.params)
+            # each simulation through the B = 1 executor in turn, as the
+            # JAX stepper's lax.map does (stepper.py:212-228), each one's
+            # p stacked with ``p_pred``
+            outs = [fn.m.head(fn.psi(self.executor_input(
+                        T[i:i + 1], V[i:i + 1]))[None])
+                    for i in range(T.shape[0])]
+            u, v, p = outs[0] if len(outs) == 1 else (
+                torch.cat(f) if f[0] is not None else None
+                for f in zip(*outs))
         else:
-            x, V = assemble_fluidnet_input(T, self._static, self.params)
+            x, V = assemble_fluidnet_input(T, self.static, self.params)
             u, v, p = self.apply_fn(x)
         return u * self.scaler, v * self.scaler, p, V
 
     @torch.no_grad()
     def stokes_psi(self, T):
-        """(psi, V, scaler) for the fused curl + advection epilogue when
-        ``apply_fn`` is the fused executor of a plain curl head (no
-        ``blurr``, no pressure output) and B = 1; None otherwise (as the
-        JAX stepper's gate, stepper.py:248-252)."""
-        fn = self._bound_fast()
-        if (fn is None or T.shape[0] != 1 or not plain_curl_head(fn.m)):
-            return None
+        """(psi, V) of a (1, H, W) temperature through the executor:
+        merge 3's raw (c_o, H, W) output, whose channel 0 is the stream
+        function the engine's fused epilogue takes, and the clipped
+        viscosity."""
         with span("pmc.engine.input"):
-            V = viscosity(T, self._static, self.params)
-        return fn.apply_psi_from_T(T, V), V, self.scaler
+            V = viscosity(T, self.static, self.params)
+        return self.executor.psi(self.executor_input(T, V)), V
 
     @torch.no_grad()
     def step(self, T, dt=None):
@@ -250,7 +253,7 @@ class TimeStepper:
         stamping; returns (T_new, dt, u, v, p, V)."""
         u, v, p, V = self.stokes(T)
         T_new, dt = advect_diffuse_step_fused(
-            u, v, T, self._raq, self._metrics, dt=dt, cn_max=self.cn_max,
+            u, v, T, self.heating, self.metrics, dt=dt, cn_max=self.cn_max,
             core_cool=self.core_cool)
         return (stamp_temperature_bc(T_new, core_cool=self.core_cool), dt,
                 u, v, p, V)
@@ -268,7 +271,7 @@ class TimeStepper:
         p = V = None
         for _ in range(n_iter):
             x, V = assemble_ifluidnet_input(T, u, v, self.grid,
-                                            self._static, self.params)
+                                            self.static, self.params)
             u, v, p = self.apply_fn(_edge_pad_w(x, 3))
             u, v = u[..., 3:-3], v[..., 3:-3]
             if p is not None:
@@ -286,7 +289,7 @@ class TimeStepper:
         401-414); returns (T_new, dt, u, v, p, V) like :meth:`step`."""
         u, v, p, V = self.stokes_iterative(T, n_iter=n_iter)
         T_new, dt = advect_diffuse_step_fused(
-            u, v, T, self._raq, self._metrics, dt=dt, cn_max=self.cn_max,
+            u, v, T, self.heating, self.metrics, dt=dt, cn_max=self.cn_max,
             core_cool=self.core_cool)
         return (stamp_temperature_bc(T_new, core_cool=self.core_cool), dt,
                 u, v, p, V)
@@ -308,7 +311,7 @@ class TimeStepper:
         function and the new temperature (pytorch_networks_convae.py:
         419-451, advect_wi_gaia.py:734-797); ``u_prev``, ``v_prev``
         scaled. Returns (T_new, u, v, p, V), u and v unscaled."""
-        x, V = assemble_unet_input(T, u_prev, v_prev, dt, self._static,
+        x, V = assemble_unet_input(T, u_prev, v_prev, dt, self.static,
                                    self.params, p_prev=p_prev)
         u, v, p, T_new = self.apply_fn(x)
         T_new = stamp_temperature_bc(T_new, core_cool=self.core_cool)

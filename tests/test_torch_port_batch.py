@@ -3,7 +3,7 @@ its stages run their plain versions), float64:
 
 1. B = 3 through ``FastNewFluidNet`` against the JAX engine over the
    module at B = 3 (rtol 1e-10 on T and dt, the golden rollout's
-   tolerance), with B ``apply_from_T`` calls per step and no epilogue;
+   tolerance), with B executor inputs per step and no epilogue;
 2. the same B = 3 trajectory against three B = 1 trajectories of the
    port, each advanced with the batch's dt (one dt for the batch: the
    smallest of the three adaptive steps).
@@ -54,19 +54,18 @@ def setup():
 
 
 def _port_engine(net, grid):
-    fast = FastNewFluidNet(net, H, W)
+    stepper = TimeStepper(grid, SimParams(3.0, 1e8, 10.0),
+                          FastNewFluidNet(net, H, W), cn_max=0.99,
+                          dtype=torch.float64, device="cpu")
     calls = []
-    apply = fast.apply_from_T
+    planar = stepper.executor_input
 
-    def counted(T, V=None):
+    def counted(T, V):
         calls.append(T.shape)
-        return apply(T, V)
+        return planar(T, V)
 
-    fast.apply_from_T = counted
-    eng = SimEngine(TimeStepper(grid, SimParams(3.0, 1e8, 10.0), fast,
-                                cn_max=0.99, dtype=torch.float64,
-                                device="cpu"))
-    return eng, calls
+    stepper.executor_input = counted
+    return SimEngine(stepper), calls
 
 
 def test_batched_fused_rollout_matches_the_jax_engine(setup, monkeypatch):

@@ -61,12 +61,12 @@ def test_batched_rollout(capsys, monkeypatch, pad):
     """--batch 2: B simulations per step, the fused executor once per
     simulation (learned padding and zero padding, its two instances),
     sim-steps/s."""
-    from pbml_mantle_convection_tpu_torch.models import fast_path
+    from pbml_mantle_convection_tpu_torch.sim.stepper import TimeStepper
     calls = []
-    apply = fast_path.FastNewFluidNet.apply_from_T
-    monkeypatch.setattr(fast_path.FastNewFluidNet, "apply_from_T",
-                        lambda self, T, V=None: calls.append(T.shape[0])
-                        or apply(self, T, V))
+    planar = TimeStepper.executor_input
+    monkeypatch.setattr(TimeStepper, "executor_input",
+                        lambda self, T, V: calls.append(T.shape[0])
+                        or planar(self, T, V))
     sps = main(["--what", "rollout", "-l", "2", "-f", "8", "-r", "1",
                 "--H", "20", "--W", "28", "--steps", "2", "--batch", "2",
                 "-pad", pad, "--device", "cpu"])

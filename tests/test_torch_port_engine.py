@@ -9,6 +9,8 @@
    all in Pallas interpret mode, vs the port's engine over its fused
    executor — at the tolerances of tests/test_fast_path.py and
    tests/test_epilogue_kernel.py.
+3. The stepper's planar input of the executor against the NHWC input of
+   the module path, to the bit.
 """
 
 from unittest import mock
@@ -37,7 +39,8 @@ from pbml_mantle_convection_tpu_torch.ops.branch_kernel import layer_stack  # no
 from pbml_mantle_convection_tpu_torch.sim.engine import (  # noqa: E402
     SimEngine, decay_heating)
 from pbml_mantle_convection_tpu_torch.sim.grid import Grid  # noqa: E402
-from pbml_mantle_convection_tpu_torch.sim.stepper import TimeStepper  # noqa: E402
+from pbml_mantle_convection_tpu_torch.sim.stepper import (  # noqa: E402
+    TimeStepper, assemble_fluidnet_input)
 from pbml_mantle_convection_tpu_torch.utils.flax_convert import (  # noqa: E402
     from_jax_params)
 
@@ -240,3 +243,31 @@ def test_stepper_step_and_rollout_snapshots(fused):
                                               float(trr.t[5])]
     assert snaps[-1]["T"].shape == (1, H, W)
     assert torch.equal(sr.T, s6.T) and torch.equal(trr.mean_T, tr6.mean_T)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_executor_input_is_the_fluidnet_input(dtype):
+    """The stepper's planar input of each simulation is
+    ``assemble_fluidnet_input``'s NHWC input of it, permuted, to the bit;
+    the static fields' depth is 1 - yc."""
+    H, W = 20, 28
+    grid = Grid(H=H, W=W)
+    net = NewFluidNet(levels=2, c_i=7, c_h=8, c_o=1, act_fn="gelu",
+                      r_p="learned", loss_type="curl", repeats=1, f=5,
+                      p_pred=False, device="cpu", dtype=dtype)
+    st = TimeStepper(grid, SimParams(3.0, 1e8, 10.0),
+                     FastNewFluidNet(net, H, W), dtype=dtype, device="cpu")
+    assert st.executor is st.apply_fn
+    T = torch.as_tensor(np.stack([
+        np.clip(1.0 - grid.yc + 0.05 * np.sin(6.28 * grid.xc + ph), 0, 1)
+        for ph in (0.0, 0.37)]), dtype=dtype)
+    x, V = assemble_fluidnet_input(T, st.static, st.params)
+    for i in range(2):
+        got = st.executor_input(T[i:i + 1], V[i:i + 1])
+        assert got.dtype == dtype and got.is_contiguous()
+        assert torch.equal(got, x[i].permute(2, 0, 1))
+    _, yc = grid.coords("cpu", dtype)
+    np.testing.assert_allclose(st.static.depth.numpy(), 1.0 - yc.numpy(),
+                               rtol=0, atol=4 * torch.finfo(dtype).eps)
+    assert TimeStepper(grid, SimParams(3.0, 1e8, 10.0), net,
+                       dtype=dtype, device="cpu").template is None

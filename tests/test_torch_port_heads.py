@@ -46,6 +46,7 @@ from pbml_mantle_convection_tpu_torch.constants import SimParams  # noqa: E402
 from pbml_mantle_convection_tpu_torch.models.fast_path import (  # noqa: E402
     FastNewFluidNet, executor_or_module, unsupported_reason)
 from pbml_mantle_convection_tpu_torch.models.fluidnet import NewFluidNet  # noqa: E402
+from pbml_mantle_convection_tpu_torch.sim import engine as engine_mod  # noqa: E402
 from pbml_mantle_convection_tpu_torch.sim.engine import SimEngine  # noqa: E402
 from pbml_mantle_convection_tpu_torch.sim.grid import Grid  # noqa: E402
 from pbml_mantle_convection_tpu_torch.sim.stepper import TimeStepper  # noqa: E402
@@ -144,11 +145,15 @@ def _rollout_nets(loss_type, B):
 
 @pytest.mark.parametrize("B", [1, 2])
 @pytest.mark.parametrize("loss_type", ["curl", "mae"])
-def test_p_pred_rollout_matches_the_jax_engine(loss_type, B):
+def test_p_pred_rollout_matches_the_jax_engine(loss_type, B, monkeypatch):
     steps = 5
     jeng, eng, T0 = _rollout_nets(loss_type, B)
-    assert eng._epi is None                  # no fused epilogue
-    assert eng.stepper.stokes_psi(torch.as_tensor(T0[:1])) is None
+    assert eng._epi is None                  # the engine's one gate: closed
+
+    def no_epilogue(*a):
+        raise AssertionError("the fused epilogue ran for a p_pred head")
+
+    monkeypatch.setattr(engine_mod, "curl_advect_epilogue", no_epilogue)
     jstate, jtrace = jax.jit(jeng.multi_step, static_argnums=1)(
         jeng.init_state(jnp.asarray(T0)), steps)
     state, trace = eng.multi_step(eng.init_state(T0), steps)

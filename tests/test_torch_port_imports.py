@@ -1,6 +1,8 @@
 """The PyTorch port, chip_smoke.py, bench_torch.py and the port's tools
 import nothing of JAX, Flax or the JAX package (the machine with the card
-has none of them), and importing the port builds no kernel."""
+has none of them), importing the port builds no kernel, and the port's
+lower layers (models, ops, physics) import nothing of the layers that
+drive them (sim, cli, train, data, parallel)."""
 
 import ast
 import importlib
@@ -26,6 +28,38 @@ def _imports(path: Path):
 SOURCES = (sorted(PORT.rglob("*.py"))
            + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
            + sorted((ROOT / "tools").glob("torch_port_*.py")))
+
+
+LOWER = sorted(p for d in ("models", "ops", "physics")
+               for p in (PORT / d).rglob("*.py"))
+UPPER = ("sim", "cli", "train", "data", "parallel")
+
+
+def _port_imports(path: Path):
+    """The port's subpackages that ``path`` imports from, relative
+    imports resolved."""
+    package = path.relative_to(ROOT).parent.parts
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name.split(".") for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = (list(package[:len(package) - node.level + 1])
+                    if node.level else [])
+            mod = base + (node.module.split(".") if node.module else [])
+            names = ([mod] if node.module
+                     else [mod + [a.name] for a in node.names])
+        else:
+            continue
+        for parts in names:
+            if len(parts) > 1 and parts[0] == PORT.name:
+                yield parts[1]
+
+
+@pytest.mark.parametrize("path", LOWER,
+                         ids=[str(p.relative_to(ROOT)) for p in LOWER])
+def test_lower_layers_import_no_upper_layer(path):
+    bad = sorted(set(_port_imports(path)) & set(UPPER))
+    assert not bad, f"{path.relative_to(ROOT)} imports from {bad}"
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -104,6 +104,7 @@ def main() -> int:
         layer_stack, layer_stack_plain, layer_stacks, layer_stacks_plain)
     from pbml_mantle_convection_tpu_torch.ops.merge_kernel import (
         trunk, trunk_plain)
+    from pbml_mantle_convection_tpu_torch.sim.stepper import viscosity
 
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {card_line()}")
@@ -111,8 +112,8 @@ def main() -> int:
     _, fast, engine, T0 = flagship(H, W, "cuda")
     eng = engine(fast)
     T = eng.init_state(T0).T
-    eng.stepper._bound_fast()          # binds the static input channels
-    x = fast.input_from_T(T)
+    st = eng.stepper
+    x = st.executor_input(T, viscosity(T, st.static, st.params))
     n_pyr = len(fast.branches) - 1
     b, pyr = layer_stack_plain(x, fast.stem, pyramid=n_pyr)
     xs = [b, *pyr]

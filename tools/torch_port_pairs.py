@@ -45,10 +45,11 @@ def layer_kernel_ms(H=128, W=506) -> tuple[float, float]:
     from pbml_mantle_convection_tpu_torch.ops.branch_kernel import (
         layer_stack, layer_stacks)
     from pbml_mantle_convection_tpu_torch.ops.merge_kernel import trunk
+    from pbml_mantle_convection_tpu_torch.sim.stepper import viscosity
     _, fast, engine, T0 = flagship(H, W, "cuda")
     eng = engine(fast)
-    eng.stepper._bound_fast()          # binds the static input channels
-    x = fast.input_from_T(eng.init_state(T0).T)
+    st, T = eng.stepper, eng.init_state(T0).T
+    x = st.executor_input(T, viscosity(T, st.static, st.params))
     n_pyr = len(fast.branches) - 1
     b, pyr = layer_stack(x, fast.stem, pyramid=n_pyr)
     xs = [b, *pyr]
