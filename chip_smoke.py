@@ -11,9 +11,10 @@ Run from the repository root, with no arguments::
    kernels of ``layer_stack`` and ``trunk`` (learned-boundary and
    zero-padded instances, ``layer_stack``'s for each activation) and
    every ``slice_pool_kernel``
-   and ``slice_deslice_kernel`` instance and the dense attention kernel
-   hold TF32 tensor-core MMAs (the slice and attention kernels' in
-   threes: 3xTF32);
+   and ``slice_deslice_kernel`` instance, the dense attention kernel and
+   the projection conv kernel hold TF32 tensor-core MMAs (the slice,
+   attention and projection kernels' in threes: 3xTF32; the projection
+   kernel's are wgmma, ``HGMMA``);
    then, under PyTorch's default flags (TF32 convs allowed), holds a small
    NewFluidNet and a small TransolverStructured2D against the same modules
    in float64 and times the float32 guard of the port's convs;
@@ -70,7 +71,18 @@ Run from the repository root, with no arguments::
    softmax path and ``F.scaled_dot_product_attention`` in float32
    (``library_ms``, a yardstick the port never calls); then (5c) runs
    ViT-Base of the ``vit-serve-b1`` cell through ``ViTField`` at B = 1
-   without grad and checks 12 dense attention launches per forward;
+   without grad and checks 12 dense attention launches per forward; then
+   (5e) holds the Transolver's projection conv kernel (both 3×3
+   projections of a block in one launch) against ``F.conv2d`` in float64
+   at the cell's shape (B = 1, 128×506, 128 → 2 × 128; no worse than
+   twice plain float32's error, the same bits twice, one launch a call)
+   and times it (ms a block) beside its bound (3xTF32 operations, and the
+   TF32 rate's), its plain version (the kernel's nine shifted products
+   written in plain PyTorch) and cuDNN's ``F.conv2d`` pair in float32
+   with its layout copies (``library_ms``, the port's path off the
+   kernel's route); then (5f) runs the ``transolver-serve-b1`` cell's
+   Transolver (8 blocks, 64 slices) at B = 1 without grad and checks 8
+   projection conv launches per forward;
 6. runs ``tools/torch_port_accuracy.py`` at 128×506 for 500 steps: the
    flagship ML_STOKES rollout (fused, module float32 and module TF32
    against the float64 module path with the energy step's plain version;
@@ -216,7 +228,8 @@ Run from the repository root, with no arguments::
    instance of phase 14, with merge 3's own numbers and the launches of
    14 (b), under ``head_instances``, the top-level counts being the
    learned GELU curl instance's; the dense attention kernel's are phase
-   5c's), the card line again, and last
+   5c's, the projection conv kernel's phase 5f's), the card line again,
+   and last
    ``{"ok": true, "device": {...}}``.
 
 ``--phase 10``, ``--phase 11``, ``--phase 12``, ``--phase 13``,
@@ -262,6 +275,8 @@ REPLACES = {
     "slice_deslice": "pbml_mantle_convection_tpu/ops/slice_attention.py:60",
     "dense_attention": "none (pbml_mantle_convection_tpu/models/vit.py:60 "
                        "computes the ViT's attention as einsum + softmax)",
+    "projection_conv": "none (pbml_mantle_convection_tpu/models/"
+                       "transolver.py:165-168 leaves the convs to XLA)",
 }
 SOURCES = {
     "layer_stack": "pbml_mantle_convection_tpu_torch/csrc/layer_stack.cu",
@@ -275,6 +290,8 @@ SOURCES = {
         "pbml_mantle_convection_tpu_torch/csrc/slice_attention.cu",
     "dense_attention":
         "pbml_mantle_convection_tpu_torch/csrc/dense_attention.cu",
+    "projection_conv":
+        "pbml_mantle_convection_tpu_torch/csrc/projection_conv.cu",
 }
 # kernel vs plain version, max |diff| / max |plain|: both are float32 with
 # sums in another order (25·c_in-term conv dots, double vs float GroupNorm
@@ -469,8 +486,10 @@ def check_sass(so) -> None:
     in the built library holds TF32 ``HMMA`` (or ``HGMMA``) instructions,
     the slice kernels' a multiple of three (3xTF32: three products for
     each float32-accurate one); the dense attention kernel a multiple of
-    384, a tile's 2 × 64 m16n8k8 products three times each. Prints the
-    count per kernel instance (``cuobjdump --dump-sass``)."""
+    384, a tile's 2 × 64 m16n8k8 products three times each; the
+    projection conv kernel's ``HGMMA`` (wgmma) a multiple of 18, a stage's
+    6 k-steps three times each. Prints the count per kernel instance
+    (``cuobjdump --dump-sass``)."""
     import shutil
     from pathlib import Path
     from pbml_mantle_convection_tpu_torch.ops.branch_kernel import ACT_CODES
@@ -486,7 +505,7 @@ def check_sass(so) -> None:
         if m:
             fn = m.group(1) if re.search(
                 r"blc_fused_kernel|slice_(pool|deslice)_kernel|"
-                r"dense_attention_kernel",
+                r"dense_attention_kernel|projection_conv_kernel",
                 m.group(1)) else None
             if fn:
                 counts[fn] = 0
@@ -501,6 +520,13 @@ def check_sass(so) -> None:
                                   for n in dense.values()):
         raise AssertionError(f"dense_attention_kernel without its 3xTF32 "
                              f"MMAs: {dense}")
+    proj = {k: counts.pop(k) for k in list(counts)
+            if "projection_conv_kernel" in k}
+    print(f"sass: projection_conv.cu projection_conv_kernel: "
+          f"{list(proj.values())} TF32 tensor-core MMA instructions")
+    if len(proj) != 1 or not all(n and n % 18 == 0 for n in proj.values()):
+        raise AssertionError(f"projection_conv_kernel without its 3xTF32 "
+                             f"wgmma products: {proj}")
     for name, n in sorted(counts.items()):
         t = re.search(r"(slice_(?:pool|deslice)_kernel)I(\w+?)Li(\d+)E",
                       name)
@@ -1469,6 +1495,132 @@ def run_vit(iters=5, H=128, W=506, device="cuda"):
     return got
 
 
+def check_projection_conv(B=1, H=128, W=506, C=128, device="cuda", seed=0):
+    """Phase 5e: the Transolver's projection conv kernel at the
+    ``transolver-serve-b1`` cell's shape (both 3×3 projections of a block,
+    128 → 2 × 128 over 128×506), reading the (B, C, H, W) channels-last
+    view of (B, H·W, C) rows, against ``F.conv2d`` in float64 (no worse
+    than twice plain float32's error, the same bits twice, one launch a
+    call); timed (ms a block) beside its bound (3xTF32 operations; the
+    TF32 rate's beside it), its plain version (the kernel's nine shifted
+    (pixels × C) · (C × 2 C_out) products in plain PyTorch) and cuDNN's
+    ``F.conv2d`` pair in float32 with its layout copies (``library_ms``:
+    the port's path off the kernel's route, never taken on it). Returns
+    the record."""
+    import torch
+    import torch.nn.functional as F
+    from pbml_mantle_convection_tpu_torch.ops.projection_conv import (
+        pack_weights, projection_conv)
+
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(B, H * W, C, generator=g, device=device)
+    img = x.reshape(B, H, W, C).permute(0, 3, 1, 2)
+    bound = (9 * C) ** -0.5
+    ws = [((torch.rand(C, C, 3, 3, generator=g, device=device) * 2 - 1)
+           * bound).contiguous(memory_format=torch.channels_last)
+          for _ in range(2)]
+    bs = [(torch.rand(C, generator=g, device=device) * 2 - 1) * bound
+          for _ in range(2)]
+    packed = pack_weights(*ws)
+    wcat = torch.cat(ws).permute(2, 3, 1, 0).reshape(9, C, 2 * C)
+    bcat = torch.cat(bs)
+
+    def plain():
+        """The kernel's implicit GEMM in plain PyTorch: the padded image's
+        nine shifted views times each tap's (C × 2 C_out) weights."""
+        pad = F.pad(x.reshape(B, H, W, C), (0, 0, 1, 1, 1, 1))
+        out = bcat.expand(B, H, W, 2 * C).clone()
+        for tap in range(9):
+            ky, kx = divmod(tap, 3)
+            out += pad[:, ky:ky + H, kx:kx + W] @ wcat[tap]
+        return out
+
+    def library():
+        return [F.conv2d(img, w, b, padding="same") for w, b in zip(ws, bs)]
+
+    def kernel():
+        return projection_conv(img, packed, C, *bs)
+
+    with torch.no_grad():
+        n0 = projection_conv.launches
+        out, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if projection_conv.launches != n0 + 2:
+            raise AssertionError("projection_conv: not one launch a call")
+        want = [F.conv2d(img.double(), w.double(), b.double(),
+                         padding="same") for w, b in zip(ws, bs)]
+        err = max(rel_err(a.double(), b)[1] for a, b in zip(out, want))
+        lib_rel = max(rel_err(a.double(), b)[1]
+                      for a, b in zip(library(), want))
+        p = plain()
+        plain_rel = max(rel_err(p[..., i * C:(i + 1) * C].permute(
+            0, 3, 1, 2).double(), b)[1] for i, b in enumerate(want))
+        ms = cuda_ms(kernel, n=50)
+        qms = queued_ms(kernel, n=200)
+        pms = cuda_ms(plain, n=10)
+        lms = cuda_ms(library, n=20)
+    flops = 2 * 2 * B * H * W * C * C * 9
+    nbytes = 4 * (B * H * W * C * 3 + 2 * 9 * C * C + 2 * C)
+    bms, by = bound_ms(nbytes, flops, tensor_cores=True)
+    tf32_ms = flops / 495e12 * 1e3
+    print(f"projection_conv B={B} {H}x{W} {C}->2x{C} 3x3 float32 "
+          f"channels-last: rel={err:.3e} (tol twice plain float32's: "
+          f"library rel {lib_rel:.3e}, plain rel {plain_rel:.3e}) "
+          f"ms={ms:.4f} (device only, launches queued: {qms:.4f}) "
+          f"plain_ms={pms:.4f} bound_ms={bms:.4f} ({by}: "
+          f"{flops / 1e9:.2f} GFLOP at the 3xTF32 rate; {tf32_ms:.4f} at "
+          f"the TF32 rate; bytes {bound_ms(nbytes, 0.0)[0]:.4f}) "
+          f"library_ms={lms:.4f} (two F.conv2d with cuDNN's layout "
+          f"copies, float32; the port's path off the kernel's route); "
+          f"{flops / qms / 1e9:.1f} TFLOP/s")
+    if not (err <= 2 * lib_rel and all(torch.equal(a, b)
+                                       for a, b in zip(out, again))):
+        raise AssertionError(f"projection_conv disagrees: rel {err} "
+                             f"(plain float32 {lib_rel})")
+    return dict(rel=err, library_rel=lib_rel, ms=ms, queued_ms=qms,
+                plain_ms=pms, bound_ms=bms, bound_by=by, tf32_bound_ms=tf32_ms,
+                library_ms=lms)
+
+
+def run_projection_cell(iters=10, device="cuda"):
+    """Phase 5f: the ``transolver-serve-b1`` cell's Transolver (8 blocks,
+    n_hidden 128, 64 slices, 128×506) at B = 1 without grad, the main path
+    of the Transolver's serving: ``projection_conv.launches`` counted from
+    zero over ``iters`` forwards after a warm-up, 8 a forward. Returns the
+    launches."""
+    import torch
+    from pbml_mantle_convection_tpu_torch.models.registry import (
+        ModelConfig, build_model)
+    from pbml_mantle_convection_tpu_torch.ops.projection_conv import (
+        projection_conv)
+    from pathlib import Path
+    cfg = json.loads((Path(__file__).resolve().parent / "benchmarks"
+                      / "configs" / "transolver-structured.json").read_text())
+    model = build_model(ModelConfig(**cfg["model"], **cfg["grid"]),
+                        device=device)
+    H, W = cfg["grid"]["H"], cfg["grid"]["W"]
+    x = transolver_input(H, W, device)
+    with torch.no_grad():
+        model(x)
+        torch.cuda.synchronize()
+        projection_conv.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            u, v, _ = model(x)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    got = projection_conv.launches
+    want = model.n_layers * iters
+    if got != want or not (torch.isfinite(u).all()
+                           and torch.isfinite(v).all()):
+        raise AssertionError(f"transolver cell: {got} projection_conv "
+                             f"launches over {iters} forwards, want {want}")
+    print(f"transolver-structured {H}x{W} B=1 serving forward (8 blocks, "
+          f"no grad): {ms:.3f} ms per forward, projection_conv launches "
+          f"{got} = {model.n_layers} per forward ({iters} forwards)")
+    return got
+
+
 def check_default_flags(device="cuda"):
     """Phase 1b: under PyTorch's default flags (cuDNN may run float32 convs
     in TF32) the port's module paths convolve in float32: a small
@@ -1675,7 +1827,7 @@ def transolver_checks(counters, H=128, W=506, device="cuda"):
         L = model.n_layers
         print(f"transolver forward {H}x{W} f32: {total:.4f} ms; per block "
               f"x {L}: projection convs {proj:.4f} ms (2 x 3x3 128->128 "
-              f"padded by cuDNN, "
+              f"in one projection_conv launch, "
               f"{2 * 2 * 9 * 128 * 128 * N / 1e9:.1f} GFLOP), "
               f"slice_attention_fused {core:.4f} ms (einsum formulation "
               f"{core_plain:.4f}); the rest {total - L * (proj + core):.4f} "
@@ -4114,6 +4266,8 @@ def main(argv=None) -> int:
     from pbml_mantle_convection_tpu_torch.ops import _cuda
     from pbml_mantle_convection_tpu_torch.ops.dense_attention import (
         dense_attention)
+    from pbml_mantle_convection_tpu_torch.ops.projection_conv import (
+        projection_conv)
     from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
         slice_deslice, slice_pool)
 
@@ -4156,6 +4310,10 @@ def main(argv=None) -> int:
     rec["dense_attention"] = check_dense_attention()
     vit_launches = run_vit()
     print(f"dense attention: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["projection_conv"] = check_projection_conv()
+    projection_launches = run_projection_cell()
+    print(f"projection conv: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     run_accuracy()
@@ -4198,10 +4356,13 @@ def main(argv=None) -> int:
           f"queued: {floor['plain']:.5f} ms device only per launch "
           f"(cooperative {floor['cooperative']:.5f}, with one grid sync "
           f"{floor['cooperative_sync']:.5f})")
-    # the ViT's kernel, added last (the phases above check that every
-    # counter they hold reads their own launches): phase 5c's
+    # the ViT's and the Transolver projections' kernels, added last (the
+    # phases above check that every counter they hold reads their own
+    # launches): phase 5c's and phase 5f's
     counters["dense_attention"] = dense_attention
     launch["dense_attention"] = vit_launches
+    counters["projection_conv"] = projection_conv
+    launch["projection_conv"] = projection_launches
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launch[k], **rec[k])
                for k in counters]

@@ -12,7 +12,10 @@ slice_attention``: on the card the two slice-attention CUDA kernels, on
 the CPU their plain versions, with or without autograd (its backward
 recomputes the einsum formulation). The train and eval steps run the
 models inside ``plain_slice_attention``, where it is the einsum
-formulation that the JAX model trains on.
+formulation that the JAX model trains on. The 2-D structured projections
+run as one launch of ``ops/projection_conv.py``'s kernel where its
+``route`` says so (inference in float32 on the card at 3 × 3), else as
+two ``F.conv2d``.
 
 Weights are drawn from ``np.random.default_rng(seed)``: Dense layers
 trunc-normal(0.02) cut at ±2σ with zero bias (the reference's
@@ -32,6 +35,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.curl import curl_head_valid
+from ..ops.projection_conv import pack_weights, projection_conv
+from ..ops.projection_conv import route as projection_conv_route
 from ..ops.slice_attention import slice_attention
 from ..utils.profiling import span
 from .layers import (Conv2dTorch, LayerNorm, float32_convs, get_activation,
@@ -167,6 +172,7 @@ class PhysicsAttentionStructuredMesh2D(_PhysicsAttention):
         for conv in (self.in_project_fx, self.in_project_x):
             conv.weight.data = conv.weight.data.contiguous(
                 memory_format=torch.channels_last)
+        self._packed = self._packed_key = None
 
     def _conv(self, img, conv):
         """``conv`` (SAME, zero-padded) with the padding left to the conv
@@ -176,13 +182,37 @@ class PhysicsAttentionStructuredMesh2D(_PhysicsAttention):
         with float32_convs(img):
             return F.conv2d(img, conv.weight, conv.bias, padding="same")
 
+    def packed_weights(self):
+        """Both projections' weights as the kernel reads them
+        (``ops/projection_conv.py::pack_weights``): packed once, and again
+        only when a weight is replaced or written in place."""
+        w0, w1 = self.in_project_fx.weight, self.in_project_x.weight
+        key = (w0.data_ptr(), w0._version, w1.data_ptr(), w1._version)
+        if self._packed_key != key:
+            self._packed = pack_weights(w0, w1)
+            self._packed_key = key
+        return self._packed
+
     def project(self, x):
+        """Both projections: one launch of ``ops/projection_conv.py``'s
+        kernel where its ``route`` says so (float32 on the card outside
+        autograd, 3 × 3, wide channels), else ``F.conv2d`` twice."""
         B, N, C = x.shape
         if N != self.H * self.W:
             raise ValueError(f"expected N = {self.H}·{self.W}, got {N}")
         img = x.reshape(B, self.H, self.W, C).permute(0, 3, 1, 2)
-        return (self.split_heads(self._conv(img, self.in_project_fx), B, N),
-                self.split_heads(self._conv(img, self.in_project_x), B, N))
+        fx, xx = self.in_project_fx, self.in_project_x
+        grad = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, fx.weight, fx.bias, xx.weight, xx.bias))
+        c_out, _, k, _ = fx.weight.shape
+        if projection_conv_route(x.device.type, x.dtype, grad, k, C,
+                                 c_out) == "kernel":
+            fx_mid, x_mid = projection_conv(img, self.packed_weights(), c_out,
+                                            fx.bias, xx.bias)
+        else:
+            fx_mid, x_mid = self._conv(img, fx), self._conv(img, xx)
+        return self.split_heads(fx_mid, B, N), self.split_heads(x_mid, B, N)
 
 
 class PhysicsAttentionStructuredMesh3D(_PhysicsAttention):

@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("layer_stack.cu", "trunk.cu", "epilogue.cu", "advect.cu",
-           "slice_attention.cu", "dense_attention.cu")
+           "slice_attention.cu", "dense_attention.cu",
+           "projection_conv.cu")
 HEADERS = ("pmc_common.cuh", "blc_layer.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -70,6 +71,9 @@ _SIGNATURES = {
     # of q, k, v and out, the scale times log2(e), the stream
     "pmc_dense_attention": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L,
                             _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    # csrc/projection_conv.cu: the image, the packed weights, b0, b1, y0,
+    # y1, B, H, W, C, C_out, the stream
+    "pmc_projection_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

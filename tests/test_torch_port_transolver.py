@@ -119,6 +119,32 @@ def test_physics_attention(kind):
     _close(out, jm.apply(p, jnp.asarray(x)))
 
 
+@pytest.mark.parametrize("grad", [False, True])
+def test_structured_attention_at_the_projection_kernels_widths(grad):
+    """At the widths where the card takes ``ops/projection_conv.py``'s
+    kernel (128 channels, 8 heads, 3×3), the CPU runs the plain path, with
+    and without autograd: the JAX model's output (≤ 1e-9) and the two
+    ``F.conv2d`` of the projections to the bit."""
+    jm = jt.PhysicsAttentionStructuredMesh2D(dim=128, H=6, W=10, heads=8,
+                                             dim_head=16, slice_num=4,
+                                             kernel=3)
+    x = _rng(8).normal(size=(2, 60, 128))
+    p = _init(jm, x, temperature=[0.05, 0.7, 1.0, 2.0, 0.3, 0.5, 6.0, 0.2])
+    tm = _port(tt.PhysicsAttentionStructuredMesh2D(
+        128, 6, 10, _rng(), heads=8, dim_head=16, slice_num=4, kernel=3), p)
+    xt = torch.as_tensor(x)
+    with torch.set_grad_enabled(grad):
+        out = tm(xt)
+        fx_mid, x_mid = tm.project(xt)
+    _close(out.detach(), jm.apply(p, jnp.asarray(x)))
+    img = xt.reshape(2, 6, 10, 128).permute(0, 3, 1, 2)
+    for got, conv in ((fx_mid, tm.in_project_fx), (x_mid, tm.in_project_x)):
+        want = tm.split_heads(torch.nn.functional.conv2d(
+            img, conv.weight, conv.bias, padding="same"), 2, 60)
+        assert torch.equal(got.detach(), want.detach())
+    assert tm._packed is None
+
+
 @pytest.mark.parametrize("kernel", [3, 5, 4])
 def test_structured_projection_reads_heads_in_place(kernel):
     """The 2-D projection pads inside the conv (odd kernels) and keeps its
