@@ -6,8 +6,10 @@ which builds every network of the JAX registry: ``newfluidnet``,
 ``fluidnet`` and ``ifluidnet`` (the same FluidNet with c_i = 9),
 ``halfnewfluidnet``, ``multiscalenewfluidnet``, ``unet`` and ``iunet``
 (the same U-Net), ``convae``, ``transolver_structured``, ``transolver``
-and ``vit``, with every option JAX's modules take. An unknown network
-raises ``ValueError``; none silently turns into another model.
+and ``vit``, with every option JAX's modules take, and the port's own
+``samvit`` (SAM's ViT image encoder, ``models/samvit.py``; JAX has no
+counterpart). An unknown network raises ``ValueError``; none silently
+turns into another model.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from .fluidnet import (FluidNet, HalfNewFluidNet, MultiScaleNewFluidNet,
                        NewFluidNet)
+from .samvit import SamViTField
 from .transolver import TransolverIrregular, TransolverStructured2D
 from .unet import ConvAE, Unet
 from .vit import ViTField
@@ -29,7 +32,10 @@ class ModelConfig:
     """The JAX ``ModelConfig``'s fields (multigpu.py:911-1087); ``dtype``
     is a torch dtype (None: float32). ``mlp_dim`` is the port's own: the
     ViT's MLP width, which JAX's registry fixes at 2 · n_hidden (ViT-Base,
-    Dosovitskiy et al. 2021, has 4 · 768)."""
+    Dosovitskiy et al. 2021, has 4 · 768). ``window_size``,
+    ``global_attn_indexes`` and ``neck_chans`` are the port's own too,
+    read by ``samvit`` alone (SAM ViT-B's 14; None: SAM's rule, the last
+    block of each quarter of the depth; 256)."""
 
     network: str = "newfluidnet"
     levels: int = 6
@@ -56,6 +62,10 @@ class ModelConfig:
     n_layers: int = 5
     # vit-specific: the MLP width; None keeps JAX's rule, 2 · n_hidden
     mlp_dim: Optional[int] = None
+    # samvit-specific: window side, global blocks, neck width
+    window_size: int = 14
+    global_attn_indexes: Optional[Sequence[int]] = None
+    neck_chans: int = 256
     # grid
     H: int = 128
     W: int = 506
@@ -75,7 +85,7 @@ class ModelConfig:
             c_i, c_o = 11, 4
             if not self.p_pred:
                 c_i -= 1
-        elif "transolver" in net or net == "vit":
+        elif "transolver" in net or net in ("vit", "samvit"):
             c_i, c_o = 7, 3  # 2 coords + 5 function channels
         else:
             raise ValueError(f"unknown network {net!r}")
@@ -154,4 +164,17 @@ def build_model(cfg: ModelConfig, seed: int = 0, device=None):
                         mlp_dim=cfg.mlp_dim or cfg.n_hidden * 2,
                         channels=c_i,
                         p_pred=cfg.p_pred, **common)
+    if net == "samvit":
+        # the ViT's patch rule: 8×2 on 128×506, a 16 × 253 token grid
+        ph = 8 if cfg.H % 8 == 0 else 2
+        pw = 8 if cfg.W % 8 == 0 else 2
+        return SamViTField(
+            image_size=(cfg.H, cfg.W), patch_size=(ph, pw),
+            c_o=3 if cfg.p_pred else 2, dim=cfg.n_hidden,
+            depth=cfg.n_layers, heads=cfg.n_head,
+            mlp_dim=cfg.mlp_dim or cfg.n_hidden * 4,
+            window_size=cfg.window_size,
+            global_attn_indexes=cfg.global_attn_indexes,
+            neck_chans=cfg.neck_chans, channels=c_i, p_pred=cfg.p_pred,
+            **common)
     raise ValueError(f"unknown network {net!r}")

@@ -29,6 +29,14 @@ The spans, ``pmc.<layer>[.<part>]``:
   ``pmc.vit.mlp``, ``pmc.vit.head`` (``models/vit.py``: the patch
   embedding, the LayerNorms, the attention's parts, the MLPs and the
   head);
+* ``pmc.samvit.forward``, ``pmc.samvit.embed``, ``pmc.samvit.norm``,
+  ``pmc.samvit.partition``, ``pmc.samvit.qkv``,
+  ``pmc.samvit.attn.window``, ``pmc.samvit.attn.global`` (each with
+  ``pmc.samvit.relpos`` inside), ``pmc.samvit.out``, ``pmc.samvit.mlp``,
+  ``pmc.samvit.neck``, ``pmc.samvit.head`` (``models/samvit.py``: the
+  patch embedding, the LayerNorms, the windows' pad and partition and
+  their inverse, the attention's parts with the relative-position bias,
+  the MLPs, the neck and the head);
 * ``pmc.pt.solve`` (``StokesFn.__call__``), ``pmc.pt.check`` (the PT
   loop's residual check and its host read);
 * ``pmc.train.loss``, ``pmc.train.backward``, ``pmc.train.optimizer``
