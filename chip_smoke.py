@@ -12,9 +12,9 @@ Run from the repository root, with no arguments::
    zero-padded instances, ``layer_stack``'s for each activation) and
    every ``slice_pool_kernel``
    and ``slice_deslice_kernel`` instance, the dense attention kernel and
-   the projection conv kernel hold TF32 tensor-core MMAs (the slice,
-   attention and projection kernels' in threes: 3xTF32; the projection
-   kernel's are wgmma, ``HGMMA``);
+   the projection conv and Dense GEMM kernels hold TF32 tensor-core MMAs
+   (the slice, attention, projection and GEMM kernels' in threes: 3xTF32;
+   the projection and GEMM kernels' are wgmma, ``HGMMA``);
    then, under PyTorch's default flags (TF32 convs allowed), holds a small
    NewFluidNet and a small TransolverStructured2D against the same modules
    in float64 and times the float32 guard of the port's convs;
@@ -82,7 +82,16 @@ Run from the repository root, with no arguments::
    with its layout copies (``library_ms``, the port's path off the
    kernel's route); then (5f) runs the ``transolver-serve-b1`` cell's
    Transolver (8 blocks, 64 slices) at B = 1 without grad and checks 8
-   projection conv launches per forward;
+   projection conv launches per forward; then (5g) holds the ViT family's
+   Dense GEMM kernel against ``F.linear`` in float64 at each Dense shape
+   of the ViT-Base and SAM ViT-B cells (no worse than 1.5× float32
+   ``F.linear``'s error, the same bits twice, one launch a call) and times
+   it (ms a call) beside its bound (3xTF32 operations), its plain version
+   (the kernel's split and per-stage sums in plain PyTorch) and float32
+   ``F.linear`` (``library_ms``, cuBLAS, a yardstick the kernel's route
+   never calls); then (5h) runs one ViT-Base and one SAM ViT-B forward of
+   the cells' configurations at B = 1 without grad and checks 48 Dense
+   GEMM launches per forward;
 6. runs ``tools/torch_port_accuracy.py`` at 128×506 for 500 steps: the
    flagship ML_STOKES rollout (fused, module float32 and module TF32
    against the float64 module path with the energy step's plain version;
@@ -228,7 +237,8 @@ Run from the repository root, with no arguments::
    instance of phase 14, with merge 3's own numbers and the launches of
    14 (b), under ``head_instances``, the top-level counts being the
    learned GELU curl instance's; the dense attention kernel's are phase
-   5c's, the projection conv kernel's phase 5f's), the card line again,
+   5c's, the projection conv kernel's phase 5f's, the Dense GEMM kernel's
+   phase 5h's), the card line again,
    and last
    ``{"ok": true, "device": {...}}``.
 
@@ -277,6 +287,8 @@ REPLACES = {
                        "computes the ViT's attention as einsum + softmax)",
     "projection_conv": "none (pbml_mantle_convection_tpu/models/"
                        "transolver.py:165-168 leaves the convs to XLA)",
+    "dense_gemm": "none (pbml_mantle_convection_tpu/models/vit.py leaves "
+                  "the ViT's Dense layers to XLA)",
 }
 SOURCES = {
     "layer_stack": "pbml_mantle_convection_tpu_torch/csrc/layer_stack.cu",
@@ -292,6 +304,7 @@ SOURCES = {
         "pbml_mantle_convection_tpu_torch/csrc/dense_attention.cu",
     "projection_conv":
         "pbml_mantle_convection_tpu_torch/csrc/projection_conv.cu",
+    "dense_gemm": "pbml_mantle_convection_tpu_torch/csrc/dense_gemm.cu",
 }
 # kernel vs plain version, max |diff| / max |plain|: both are float32 with
 # sums in another order (25·c_in-term conv dots, double vs float GroupNorm
@@ -488,8 +501,10 @@ def check_sass(so) -> None:
     each float32-accurate one); the dense attention kernel a multiple of
     384, a tile's 2 × 64 m16n8k8 products three times each; the
     projection conv kernel's ``HGMMA`` (wgmma) a multiple of 18, a stage's
-    6 k-steps three times each. Prints the count per kernel instance
-    (``cuobjdump --dump-sass``)."""
+    6 k-steps three times each; the dense GEMM kernel's (one instance,
+    three warpgroups) a multiple of 12, a stage's 4 k-steps three times
+    each. Prints the count per kernel instance (``cuobjdump
+    --dump-sass``)."""
     import shutil
     from pathlib import Path
     from pbml_mantle_convection_tpu_torch.ops.branch_kernel import ACT_CODES
@@ -505,7 +520,8 @@ def check_sass(so) -> None:
         if m:
             fn = m.group(1) if re.search(
                 r"blc_fused_kernel|slice_(pool|deslice)_kernel|"
-                r"dense_attention_kernel|projection_conv_kernel",
+                r"dense_attention_kernel|projection_conv_kernel|"
+                r"dense_gemm_kernel",
                 m.group(1)) else None
             if fn:
                 counts[fn] = 0
@@ -527,6 +543,13 @@ def check_sass(so) -> None:
     if len(proj) != 1 or not all(n and n % 18 == 0 for n in proj.values()):
         raise AssertionError(f"projection_conv_kernel without its 3xTF32 "
                              f"wgmma products: {proj}")
+    gemm = {k: counts.pop(k) for k in list(counts)
+            if "dense_gemm_kernel" in k}
+    print(f"sass: dense_gemm.cu dense_gemm_kernel: {list(gemm.values())} "
+          f"TF32 tensor-core MMA instructions")
+    if len(gemm) != 1 or not all(n and n % 12 == 0 for n in gemm.values()):
+        raise AssertionError(f"dense_gemm_kernel without its 3xTF32 wgmma "
+                             f"products: {gemm}")
     for name, n in sorted(counts.items()):
         t = re.search(r"(slice_(?:pool|deslice)_kernel)I(\w+?)Li(\d+)E",
                       name)
@@ -1619,6 +1642,149 @@ def run_projection_cell(iters=10, device="cuda"):
           f"no grad): {ms:.3f} ms per forward, projection_conv launches "
           f"{got} = {model.n_layers} per forward ({iters} forwards)")
     return got
+
+
+# the Dense layers of the two ViT cells (B = 1): (what, rows, d_in, d_out,
+# bias, GELU, launches per forward); SAM's window blocks run qkv and the
+# output projection on 7,448 padded slots
+DENSE_SHAPES = [("ViT qkv", 4049, 768, 2304, False, False, 12),
+                ("ViT output", 4049, 768, 768, True, False, 12),
+                ("ViT / SAM MLP1", 4049, 768, 3072, True, True, 24),
+                ("ViT / SAM MLP2", 4049, 3072, 768, True, False, 24),
+                ("SAM window qkv", 7448, 768, 2304, True, False, 8),
+                ("SAM window output", 7448, 768, 768, True, False, 8),
+                ("SAM global qkv", 4048, 768, 2304, True, False, 4),
+                ("SAM global output", 4048, 768, 768, True, False, 4)]
+
+
+def check_dense_gemm(device="cuda", seed=0):
+    """Phase 5g: the ViT family's Dense GEMM kernel at each Dense shape of
+    the ``vit-serve-b1`` and ``samvit-serve-b1`` cells, against
+    ``F.linear`` (and GELU) in float64 (no worse than 1.5× float32
+    ``F.linear``'s error, the same bits twice, one launch a call); timed
+    (ms a call, device only) beside its bound (3xTF32 operations; the
+    TF32 rate's beside it), its plain version (``dense_gemm_plain``: the
+    kernel's split and per-stage sums in plain PyTorch) and float32
+    ``F.linear`` with ``F.gelu`` after it where asked (cuBLAS, the
+    ``library_ms``, a yardstick the kernel's route never calls). Returns
+    the record of the largest shape (SAM's window qkv, 26.4 GFLOP) with
+    every shape's beside it under ``shapes``."""
+    import torch
+    import torch.nn.functional as F
+    from pbml_mantle_convection_tpu_torch.ops.dense_gemm import (
+        dense_gemm, dense_gemm_plain, pack_weight)
+
+    rows_out, vit = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                             bound_ms=0.0)
+    largest, flops_max = None, 0.0
+    for what, M, K, N, has_b, gelu, per_fwd in DENSE_SHAPES:
+        g = torch.Generator(device).manual_seed(seed + M + N)
+        x = torch.randn(M, K, generator=g, device=device)
+        w = (torch.rand(N, K, generator=g, device=device) * 2 - 1) * K ** -0.5
+        b = ((torch.rand(N, generator=g, device=device) * 2 - 1) * K ** -0.5
+             if has_b else None)
+        packed = pack_weight(w)
+
+        def kernel():
+            return dense_gemm(x, packed, b, gelu)
+
+        def library():
+            y = F.linear(x, w, b)
+            return F.gelu(y) if gelu else y
+
+        with torch.no_grad():
+            n0 = dense_gemm.launches
+            out, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            if dense_gemm.launches != n0 + 2:
+                raise AssertionError("dense_gemm: not one launch a call")
+            want = F.linear(x.double(), w.double(),
+                            None if b is None else b.double())
+            if gelu:
+                want = F.gelu(want)
+            err = rel_err(out.double(), want)[1]
+            lib_rel = rel_err(library().double(), want)[1]
+            plain_rel = rel_err(dense_gemm_plain(x, w, b, gelu).double(),
+                                want)[1]
+            ms = queued_ms(kernel, n=100)
+            pms = cuda_ms(lambda: dense_gemm_plain(x, w, b, gelu), n=3)
+            lms = queued_ms(library, n=50)
+        flops = 2.0 * M * K * N
+        nbytes = 4.0 * (M * K + N * K + M * N + (N if has_b else 0))
+        bms, by = bound_ms(nbytes, flops, tensor_cores=True)
+        print(f"dense_gemm {what} {M}x{K}->{N} bias {has_b} gelu {gelu}: "
+              f"rel={err:.3e} (tol 1.5x "
+              f"library rel {lib_rel:.3e}; plain rel {plain_rel:.3e}) "
+              f"ms={ms:.4f} (device only) plain_ms={pms:.4f} "
+              f"bound_ms={bms:.4f} ({by}: {flops / 1e9:.2f} GFLOP at the "
+              f"3xTF32 rate; {flops / 495e12 * 1e3:.4f} at the TF32 rate; "
+              f"bytes {bound_ms(nbytes, 0.0)[0]:.4f}) library_ms={lms:.4f} "
+              f"(F.linear{' + F.gelu' if gelu else ''}, cuBLAS float32; "
+              f"never called on the kernel's route); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s; {per_fwd} per forward")
+        if not (err <= 1.5 * lib_rel and torch.equal(out, again)):
+            raise AssertionError(f"dense_gemm {what} disagrees: rel {err} "
+                                 f"(float32 F.linear {lib_rel})")
+        rows_out.append(dict(what=what, shape=[M, K, N], bias=has_b,
+                             gelu=gelu, rel=err, library_rel=lib_rel,
+                             ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                             library_ms=lms))
+        if flops > flops_max:
+            largest, flops_max = rows_out[-1], flops
+        if M == 4049:
+            blocks = 12
+            vit["ms"] += blocks * ms
+            vit["plain_ms"] += blocks * pms
+            vit["library_ms"] += blocks * lms
+            vit["bound_ms"] += blocks * bms
+    print(f"dense_gemm at a ViT-Base forward's 48 shapes, each timed "
+          f"alone, summed: {vit['ms']:.3f} ms device only, bound "
+          f"{vit['bound_ms']:.3f}, plain {vit['plain_ms']:.3f}, library "
+          f"{vit['library_ms']:.3f}")
+    return dict(largest, shapes=rows_out)
+
+
+def run_dense_gemm_models(iters=5, device="cuda"):
+    """Phase 5h: one ViT-Base (``vit-serve-b1``) and one SAM ViT-B
+    (``samvit-serve-b1``) forward at B = 1 without grad, the main path of
+    both cells: ``dense_gemm.launches`` counted from zero over ``iters``
+    forwards of each after a warm-up, 48 a forward (qkv, output and the
+    two MLP layers of 12 blocks; the ViT's embedding and 1-row head and
+    SAM's 32-wide head stay on ``F.linear``). Returns the launches."""
+    import torch
+    from pathlib import Path
+    from pbml_mantle_convection_tpu_torch.models.registry import (
+        ModelConfig, build_model)
+    from pbml_mantle_convection_tpu_torch.ops.dense_gemm import dense_gemm
+    total = 0
+    for config in ("vit-base.json", "sam-vit-b.json"):
+        cfg = json.loads((Path(__file__).resolve().parent / "benchmarks"
+                          / "configs" / config).read_text())
+        model = build_model(ModelConfig(**cfg["model"], **cfg["grid"]),
+                            device=device)
+        H, W = cfg["grid"]["H"], cfg["grid"]["W"]
+        x = torch.rand(1, H, W, 7, device=device,
+                       generator=torch.Generator(device).manual_seed(0))
+        with torch.no_grad():
+            model(x)
+            torch.cuda.synchronize()
+            dense_gemm.launches = 0
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                u, v, _ = model(x)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        got = dense_gemm.launches
+        if got != 48 * iters or not (torch.isfinite(u).all()
+                                     and torch.isfinite(v).all()):
+            raise AssertionError(f"{config}: {got} dense_gemm launches over "
+                                 f"{iters} forwards, want {48 * iters}")
+        print(f"{config} {H}x{W} B=1 serving forward (no grad): {ms:.3f} "
+              f"ms per forward, dense_gemm launches {got} = 48 per forward "
+              f"({iters} forwards)")
+        total += got
+        del model
+    return total
 
 
 def check_default_flags(device="cuda"):
@@ -4266,6 +4432,7 @@ def main(argv=None) -> int:
     from pbml_mantle_convection_tpu_torch.ops import _cuda
     from pbml_mantle_convection_tpu_torch.ops.dense_attention import (
         dense_attention)
+    from pbml_mantle_convection_tpu_torch.ops.dense_gemm import dense_gemm
     from pbml_mantle_convection_tpu_torch.ops.projection_conv import (
         projection_conv)
     from pbml_mantle_convection_tpu_torch.ops.slice_attention import (
@@ -4314,6 +4481,10 @@ def main(argv=None) -> int:
     rec["projection_conv"] = check_projection_conv()
     projection_launches = run_projection_cell()
     print(f"projection conv: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["dense_gemm"] = check_dense_gemm()
+    dense_gemm_launches = run_dense_gemm_models()
+    print(f"dense gemm: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     run_accuracy()
@@ -4356,13 +4527,15 @@ def main(argv=None) -> int:
           f"queued: {floor['plain']:.5f} ms device only per launch "
           f"(cooperative {floor['cooperative']:.5f}, with one grid sync "
           f"{floor['cooperative_sync']:.5f})")
-    # the ViT's and the Transolver projections' kernels, added last (the
-    # phases above check that every counter they hold reads their own
-    # launches): phase 5c's and phase 5f's
+    # the ViT's, the Transolver projections' and the Dense layers' kernels,
+    # added last (the phases above check that every counter they hold reads
+    # their own launches): phase 5c's, 5f's and 5h's
     counters["dense_attention"] = dense_attention
     launch["dense_attention"] = vit_launches
     counters["projection_conv"] = projection_conv
     launch["projection_conv"] = projection_launches
+    counters["dense_gemm"] = dense_gemm
+    launch["dense_gemm"] = dense_gemm_launches
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=REPLACES[k], launches=launch[k], **rec[k])
                for k in counters]

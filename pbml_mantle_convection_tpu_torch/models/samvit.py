@@ -41,7 +41,12 @@ profiler collects, a forward opens the spans (``utils/profiling.py
 the product with v), ``pmc.samvit.relpos`` inside those (the tables'
 gather and the two einsums), ``pmc.samvit.out`` (the heads' merge and
 the output projection), ``pmc.samvit.mlp``, ``pmc.samvit.neck`` and
-``pmc.samvit.head``; the residual adds lie in none but the forward's.
+``pmc.samvit.head``; the residual adds lie in none but the forward's. The
+Linear layers are ``models/vit.py::_Linear``: on the card, in float32
+outside autograd, the blocks' qkv, output and MLP layers run the
+``dense_gemm`` kernel (the MLP's GELU in its epilogue, a
+``pmc.kernel.dense_gemm`` span inside the caller's); the field head (32
+outputs) stays on ``F.linear``.
 
 Weights are drawn from ``np.random.default_rng(seed)``: Linear and conv
 weights U(-1/√fan_in, 1/√fan_in) with zero biases; the position
@@ -199,7 +204,7 @@ class _MLP(nn.Module):
         self.lin2 = _Linear(rng, hidden, dim)
 
     def forward(self, x):
-        return self.lin2(F.gelu(self.lin1(x)))
+        return self.lin2(self.lin1(x, gelu=True))
 
 
 class _Block(nn.Module):

@@ -34,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops._cuda import packed_once
 from ..ops.curl import curl_head_valid
 from ..ops.projection_conv import pack_weights, projection_conv
 from ..ops.projection_conv import route as projection_conv_route
@@ -186,12 +187,8 @@ class PhysicsAttentionStructuredMesh2D(_PhysicsAttention):
         """Both projections' weights as the kernel reads them
         (``ops/projection_conv.py::pack_weights``): packed once, and again
         only when a weight is replaced or written in place."""
-        w0, w1 = self.in_project_fx.weight, self.in_project_x.weight
-        key = (w0.data_ptr(), w0._version, w1.data_ptr(), w1._version)
-        if self._packed_key != key:
-            self._packed = pack_weights(w0, w1)
-            self._packed_key = key
-        return self._packed
+        return packed_once(self, pack_weights, self.in_project_fx.weight,
+                           self.in_project_x.weight)
 
     def project(self, x):
         """Both projections: one launch of ``ops/projection_conv.py``'s

@@ -27,7 +27,15 @@ While a profiler collects, a forward opens the spans (``utils/profiling.py
 on the kernel's route ``pmc.kernel.dense_attention`` inside it),
 ``pmc.vit.attn.out`` (the heads' merge and the output projection),
 ``pmc.vit.mlp`` (Dense, GELU, Dense) and ``pmc.vit.head`` (the pooling
-and the last Dense); the residual adds lie in none but the forward's.
+and the last Dense); the residual adds lie in none but the forward's. A
+Dense layer (``_Linear``) follows ``ops/dense_gemm.py::route``: on the
+card, for float32 inputs outside autograd at shapes its tiling takes
+(every Dense of the blocks at ViT-Base's widths and at ``ModelConfig``'s
+defaults), one ``dense_gemm`` launch (``csrc/dense_gemm.cu``; it replaces
+no TPU kernel: JAX leaves Dense to XLA) with the bias and, for the MLP's
+first layer, exact GELU in its epilogue, 3xTF32 on the tensor cores
+(float32-accurate), which opens ``pmc.kernel.dense_gemm`` inside the
+caller's span; elsewhere ``F.linear`` (and ``F.gelu``), as before.
 
 Weights are drawn from ``np.random.default_rng(seed)``: Linear weights
 U(-1/√in, 1/√in) with zero biases (Flax's Dense with torch's fan-in
@@ -47,17 +55,23 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops.dense_attention import dense_attention, route
+from ..ops._cuda import packed_once
+from ..ops.dense_gemm import linear, pack_weight
 from ..utils.profiling import span
 from .layers import LayerNorm, keep_float32
 
 
 class _Linear(nn.Module):
     """``F.linear`` with a (d_out, d_in) weight ~ U(-1/√d_in, 1/√d_in)
-    from ``rng`` and a zero bias (no draw from torch's global
-    generator)."""
+    from ``rng`` and a zero bias (no draw from torch's global generator);
+    ``forward(x, gelu=True)`` applies exact GELU after it. Where the
+    kernel takes it (``ops/dense_gemm.py::linear``: float32 on the card
+    outside autograd, at shapes it takes, rows it reads where they lie)
+    one ``dense_gemm`` launch computes both on the weight as
+    :meth:`packed_weight` keeps it; elsewhere ``F.linear`` and
+    ``F.gelu``."""
 
     def __init__(self, rng: np.random.Generator, d_in: int, d_out: int,
                  bias: bool = True):
@@ -67,10 +81,16 @@ class _Linear(nn.Module):
             rng.uniform(-bound, bound, size=(d_out, d_in)),
             dtype=torch.float32))
         self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
+        self._packed, self._packed_key = None, None
 
-    def forward(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), b)
+    def packed_weight(self):
+        """The weight as the kernel reads it (``ops/dense_gemm.py::
+        pack_weight``): packed at the first call on the kernel's route, and
+        again only when the weight is replaced or written in place."""
+        return packed_once(self, pack_weight, self.weight)
+
+    def forward(self, x, gelu: bool = False):
+        return linear(x, self.weight, self.bias, gelu, self.packed_weight)
 
 
 def _layer_norm(dim: int) -> LayerNorm:
@@ -90,7 +110,7 @@ class FeedForward(nn.Module):
         with span("pmc.vit.norm"):
             x = self.LayerNorm_0(x)
         with span("pmc.vit.mlp"):
-            return self.Dense_1(F.gelu(self.Dense_0(x)))
+            return self.Dense_1(self.Dense_0(x, gelu=True))
 
 
 class Attention(nn.Module):

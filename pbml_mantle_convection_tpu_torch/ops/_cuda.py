@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("layer_stack.cu", "trunk.cu", "epilogue.cu", "advect.cu",
            "slice_attention.cu", "dense_attention.cu",
-           "projection_conv.cu")
+           "projection_conv.cu", "dense_gemm.cu")
 HEADERS = ("pmc_common.cuh", "blc_layer.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -74,6 +74,9 @@ _SIGNATURES = {
     # csrc/projection_conv.cu: the image, the packed weights, b0, b1, y0,
     # y1, B, H, W, C, C_out, the stream
     "pmc_projection_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # csrc/dense_gemm.cu: x, the packed weight, the bias, y, M, K, N, gelu,
+    # the stream
+    "pmc_dense_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -214,6 +217,17 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 def check_cuda_f32(name: str, t: torch.Tensor, shape=None) -> None:
     check_cuda(name, t, torch.float32, shape)
+
+
+def packed_once(owner, pack, *weights):
+    """``pack(*weights)``, kept on ``owner`` (its ``_packed``, under the
+    key ``_packed_key``) for as long as the weights stay the same: made at
+    the first call, and again only when a weight is replaced or written in
+    place (its storage or its version counter moves)."""
+    key = tuple((w.data_ptr(), w._version) for w in weights)
+    if owner._packed_key != key:
+        owner._packed, owner._packed_key = pack(*weights), key
+    return owner._packed
 
 
 def ptr(t) -> int | None:
